@@ -1,8 +1,8 @@
-"""Inference agent: one or more cascade stages of annealed Langevin sampling
-(counterpart of the JAX package's ``agent.py``; the EBM critic and request
-batching are not ported yet).  Per stage the scene and grasp features are
-extracted once, then the rollout runs on the model's device; the final pose
-of one stage seeds the next."""
+"""Inference agent: one or more cascade stages of annealed Langevin sampling,
+then an optional EBM critic that ranks the final poses by energy (counterpart
+of the JAX package's ``agent.py``; request batching is not ported yet).  Per
+stage the scene and grasp features are extracted once, then the rollout runs
+on the model's device; the final pose of one stage seeds the next."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,9 +73,12 @@ class DiffusionEdfAgent:
         preprocess_config: Sequence[Dict],
         unprocess_config: Sequence[Dict],
         preprocess_seed: Optional[int] = None,
+        critic: Optional[ModelBundle] = None,
     ):
-        """``preprocess_seed`` seeds the jitter ops of the preprocessing."""
+        """``preprocess_seed`` seeds the jitter ops of the preprocessing;
+        ``critic`` is an EBM model whose energy orders the sampled poses."""
         self.models = list(models)
+        self.critic = critic
         self.proc_fn = compose_proc_fn(preprocess_config, seed=preprocess_seed)
         self.unrescale = 1.0  # the unprocess pipeline is a rescale (cm -> m) of poses
         for op in unprocess_config:
@@ -105,7 +108,9 @@ class DiffusionEdfAgent:
         """Cascaded annealed Langevin sampling.  ``generator`` draws the
         Langevin noise and must live on the models' device.  Returns
         (trajectory (steps + stages, nT, 7) in processed (cm) units, processed
-        scene, processed grasp, info with per-stage host timings)."""
+        scene, processed grasp, info with per-stage host timings).  With a
+        critic the trajectory's pose axis is sorted by the energy of the final
+        poses, ascending, and ``info["energy"]`` holds the sorted energies."""
         scene_p, grasp_p = self._prep(scene_pcd, grasp_pcd)
         pose_scale = 1.0 / self.unrescale if self.unrescale != 1.0 else 1.0
         T0 = np.asarray(Ts_init, dtype=np.float32)
@@ -136,7 +141,20 @@ class DiffusionEdfAgent:
             info["rollout_s"].append(time.perf_counter() - t1)
             info["steps"].append(len(sched.t))
             trajs.append((traj if record_trajectory else T[None]).cpu().numpy())
-        return np.concatenate(trajs, axis=0), scene_p, grasp_p, info
+        Ts_out = np.concatenate(trajs, axis=0)
+        if self.critic is not None:
+            c = self.critic
+            model, dev = c.model, c.device
+            t0 = time.perf_counter()
+            key_ms = model.get_key_pcd_multiscale(pad_pointcloud(scene_p, c.n_scene_pad, dev))
+            query = model.get_query_pcd(pad_pointcloud(grasp_p, c.n_grasp_pad, dev))
+            Tl = torch.as_tensor(Ts_out[-1], device=dev)
+            energy = model.energy(Tl, key_ms, query, torch.ones(Tl.shape[0], device=dev)).cpu().numpy()
+            info["critic_s"] = time.perf_counter() - t0
+            order = np.argsort(energy)
+            Ts_out = Ts_out[:, order]
+            info["energy"] = energy[order]
+        return Ts_out, scene_p, grasp_p, info
 
     def unprocess_poses(self, Ts: np.ndarray) -> np.ndarray:
         """cm -> metres on the translation part."""

@@ -1,6 +1,7 @@
 """Score model assembly (counterpart of the JAX package's
 ``models/score_model.py::MultiscaleScoreModel``, inference methods): key =
-UNet extractor, query = static keypoints, head = denoising score head."""
+UNet extractor, query = static keypoints, head = the denoising score head or,
+with ``ebm: true`` in the head's config, the energy-based critic head."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -13,7 +14,7 @@ from ..geom.irreps import Irreps
 from ..nn.attention import EDGE_IMPLS, GraphAttention
 from .extractor import UnetFeatureExtractor
 from .keypoint import StaticKeypointModel
-from .score_head import ScoreModelHead
+from .score_head import EbmScoreModelHead, ScoreModelHead
 
 __all__ = ["MultiscaleScoreModel"]
 
@@ -27,8 +28,8 @@ class MultiscaleScoreModel(nn.Module):
         query_kwargs: Dict,
         edge_impl: Optional[str] = None,
     ):
-        """``edge_impl`` (``"kernel"``, ``"plain"`` or None for the device
-        default) is handed to every ``GraphAttention`` of the model."""
+        """``edge_impl`` (one of ``nn.attention.EDGE_IMPLS``, or None for the
+        device default) is handed to every ``GraphAttention`` of the model."""
         super().__init__()
         fe_name = key_kwargs["feature_extractor_name"]
         if fe_name != "UnetFeatureExtractor":
@@ -40,12 +41,11 @@ class MultiscaleScoreModel(nn.Module):
         qk = dict(query_kwargs)
         self.query_model = StaticKeypointModel(qk["keypoint_coords"], qk["irreps_output"])
         kw = dict(score_head_kwargs)
-        if kw.pop("ebm", False):
-            raise NotImplementedError("the EBM critic head is not ported yet")
+        self.use_ebm = bool(kw.pop("ebm", False))
         tf = dict(kw.pop("key_tensor_field_kwargs"))
         tf["irreps_input"] = Irreps(fe_kwargs["irreps_output"])
         self.ang_mult, self.lin_mult = float(kw["ang_mult"]), float(kw["lin_mult"])
-        self.score_head = ScoreModelHead(
+        self.score_head = (EbmScoreModelHead if self.use_ebm else ScoreModelHead)(
             max_time=float(kw.pop("max_time")),
             time_emb_mlp=tuple(kw.pop("time_emb_mlp")),
             key_tensor_field_kwargs=tf,
@@ -72,6 +72,14 @@ class MultiscaleScoreModel(nn.Module):
         return self.query_model(pcd)
 
     def score(self, Ts, key_pcd_multiscale, query_pcd, time) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.use_ebm:
+            raise NotImplementedError("the score of an EBM model (the gradient of its energy, ebm_score) "
+                                      "comes with the training port; call energy()")
+        return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
+
+    def energy(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
+        """Per-pose energies ``(nT,)`` of an EBM model."""
+        assert self.use_ebm, "energy() needs a model built with ebm: true"
         return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
 
     def forward(self, Ts, key_pcd, query_pcd, time):

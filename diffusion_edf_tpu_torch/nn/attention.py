@@ -8,27 +8,34 @@ radial-MLP-weighted depthwise TP of the (src+dst) message with the edge SH
 (gate, second depthwise TP, linear); then a masked softmax over the K axis,
 the weighted sum and the output projection.
 
-The per-edge segment has two implementations, chosen by ``edge_impl``:
+The per-edge segment has four implementations, chosen by ``edge_impl``:
 
 * ``"plain"``: the module path, one PyTorch op per step;
-* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel`, which launches the
-  hand-written CUDA kernel on CUDA tensors and runs its plain version on
-  CPU tensors.
+* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel` in float32, then the
+  masked softmax in PyTorch;
+* ``"kernel_bf16"``: the same kernel in its selective mixed precision: only
+  the message is cast to bfloat16 (and ``W_av`` with it); logits come back
+  float32, the value bfloat16 and is widened to float32 for the softmax tail;
+* ``"fused"``: :func:`..nn.fused_attention.fused_attention`, which takes the
+  place of everything between the message and the output projection, the
+  softmax included.
 
-``edge_impl=None`` picks ``"kernel"`` for CUDA tensors and ``"plain"`` for
-CPU tensors.  Both read the same parameters.
+Each wrapper launches its hand-written CUDA kernel on CUDA tensors and runs
+its plain version on CPU tensors.  ``edge_impl=None`` picks ``"kernel"`` for
+CUDA tensors and ``"plain"`` for CPU tensors.  All read the same parameters.
 """
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..geom.irreps import Irreps, multiply_irreps, sort_irreps_even_first
-from .edge_kernel import build_edge_plan, edge_kernel, pack_radial, prepare_weights
+from .edge_kernel import build_edge_plan, edge_kernel, pack_radial, prepare_weights, weights_bf16
+from .fused_attention import fused_attention
 from .layers import GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
 from .radial import RadialProfile
 from .tp import cm_eligible, cm_input_perm, dtp_instructions, im_perm
@@ -37,7 +44,7 @@ from .util import cached, constant, smooth_leaky_relu, smooth_leaky_relu_norm
 
 __all__ = ["GraphAttention", "attn_heads_irreps", "EDGE_IMPLS"]
 
-EDGE_IMPLS = ("kernel", "plain")
+EDGE_IMPLS = ("kernel", "kernel_bf16", "fused", "plain")
 
 
 def attn_heads_irreps(irreps_head: Irreps, num_heads: int) -> Irreps:
@@ -58,6 +65,12 @@ def _head_select(irreps_head: Irreps, H: int, dim: int) -> np.ndarray:
             Hsel[h, off + h * blk : off + (h + 1) * blk] = 1.0
         off += H * blk
     return Hsel
+
+
+@functools.lru_cache(maxsize=None)
+def _head_of_col(irreps_head: Irreps, H: int, dim: int) -> Tuple[int, ...]:
+    """The head h(f) of every lane f of the attention output."""
+    return tuple(int(h) for h in _head_select(irreps_head, H, dim).argmax(axis=0))
 
 
 class GraphAttention(nn.Module):
@@ -126,6 +139,10 @@ class GraphAttention(nn.Module):
         weights = prepare_weights(self.plan, W_av, b_av, self._dmat(), w_tp2, W_lin2, b_lin2)
         return weights, pack_radial(*self.sep_act_rad.materialize())
 
+    def _kernel_weights_bf16(self):
+        weights, rad = self._kernel_weights()
+        return weights_bf16(weights), rad
+
     def forward(
         self,
         message: torch.Tensor,  # (Nd, K, F_in) i-major
@@ -138,6 +155,12 @@ class GraphAttention(nn.Module):
         impl = self.edge_impl or ("kernel" if message.is_cuda else "plain")
         nd, nk = message.shape[:2]
         H = self.H
+        if impl == "fused":
+            weights, rad = cached(self, "edge_weights", list(self.parameters()), self._kernel_weights)
+            head_of_col = _head_of_col(self.irreps_head, H, self.irreps_attn.dim)
+            attn = fused_attention(self.plan, head_of_col, message, edge_attr, edge_scalars, edge_mask,
+                                   edge_pre_attn_logit, edge_post_attn, weights, rad)
+            return self.proj(attn)
         msg2 = message.reshape(nd * nk, -1)
         attr2 = edge_attr.reshape(nd * nk, -1)
         scal2 = edge_scalars.reshape(nd * nk, -1)
@@ -146,6 +169,11 @@ class GraphAttention(nn.Module):
             logits, val = edge_kernel(self.plan, msg2, attr2, scal2, weights, rad)
             log_alpha = logits.reshape(nd, nk, H).transpose(1, 2)
             val = val.reshape(nd, nk, -1)
+        elif impl == "kernel_bf16":
+            weights, rad = cached(self, "edge_weights_bf16", list(self.parameters()), self._kernel_weights_bf16)
+            logits, val = edge_kernel(self.plan, msg2.to(torch.bfloat16), attr2, scal2, weights, rad)
+            log_alpha = logits.reshape(nd, nk, H).transpose(1, 2)
+            val = val.reshape(nd, nk, -1).to(message.dtype)
         else:
             w = self.sep_act_rad(scal2)
             mid = self.sep_act_dtp(msg2, attr2, w, component_major=True, x_component_major=True)

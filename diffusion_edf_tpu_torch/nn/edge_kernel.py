@@ -10,7 +10,21 @@ Per edge row the segment computes
 
 and returns ``logits (rows, H)`` and ``val (rows, attn_dim)``; the masked
 softmax over K stays outside.  It is the counterpart of the JAX package's
-``nn/edge_kernel.py`` (``edge_kernel_call`` and its ``_core``).
+``nn/edge_kernel.py`` (``edge_kernel_call`` with its ``_core``, and
+``_call_transposed`` with its ``_core_t``).
+
+Two precisions, chosen by the dtypes of the operands and by nothing else:
+
+* every operand float32: everything runs in float32;
+* ``x1`` and ``W_av`` bfloat16, every other operand float32: the selective
+  mixed precision of the JAX package's transposed kernel.  The message
+  lanes, ``A1 = attr @ C1`` after its product, every DTP1 piece (each product
+  and each sum rounded to bfloat16, the radial weight rounded before its
+  product) and ``W_av`` are bfloat16; the ``Y1 @ W_av`` product accumulates in
+  float32 and everything after it is float32.  ``logits`` come back float32,
+  ``val`` bfloat16.
+
+Any other combination raises.
 
 :func:`edge_kernel` is the wrapper: on a CPU tensor it runs
 :func:`edge_core_plain`; on a CUDA tensor it launches the kernel, built at
@@ -21,19 +35,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..geom.irreps import Irreps
+from .cuda_build import load_library
 from .layers import irreps2gate, norm_sigmoid, scalar_silu
 from .tp import TPProgram, _cm_meta, im_perm
 from .util import constant, sigmoid_norm, silu_norm, smooth_leaky_relu, smooth_leaky_relu_norm
@@ -43,18 +51,19 @@ __all__ = [
     "build_edge_plan",
     "prepare_weights",
     "pack_radial",
+    "weights_bf16",
     "edge_core_plain",
     "edge_kernel",
-    "build_library",
+    "segment_operands",
     "launches",
+    "launches_bf16",
 ]
 
-# Kernel launches since import (or the last reset by a caller); one per
-# launch of the CUDA kernel, none for the plain version.
+# Kernel launches since import (or the last reset by a caller), float32 and
+# mixed bfloat16; one per launch of the CUDA kernel, none for the plain version.
 launches = 0
+launches_bf16 = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "edge_kernel.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _MAX_PIECE = 64  # widest DTP piece the kernel's piece buffer holds
 _MAX_COLS = 384  # widest product output (12 columns per lane x 32 lanes)
 
@@ -209,23 +218,48 @@ def _radial_fwd(spec, x, arrays):
     return h + arrays[ai]
 
 
+def weights_bf16(weights):
+    """``prepare_weights``' tuple with ``W_av`` cast to bfloat16: the operand
+    set of the mixed-precision mode."""
+    return (weights[0].to(torch.bfloat16),) + tuple(weights[1:])
+
+
+def _is_mixed(x1, W_av, f32_operands) -> bool:
+    """False for the float32 mode, True for the mixed bfloat16 mode; raises on
+    any other combination of dtypes (a silently promoted operand would change
+    what is rounded where)."""
+    dts = (x1.dtype, W_av.dtype)
+    if dts not in ((torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)):
+        raise TypeError(f"edge_kernel: x1 and W_av must both be float32 or both bfloat16, got {dts}")
+    for t in f32_operands:
+        if t.dtype != torch.float32:
+            raise TypeError(f"edge_kernel: every operand but x1 and W_av must be float32, got {t.dtype}")
+    return dts[0] == torch.bfloat16
+
+
 def _consts(plan: EdgePlan, like: torch.Tensor):
+    """``C1``, ``C2`` and the gate expansion in float32 on ``like``'s device."""
+    f32 = torch.float32
     return (
-        constant(("edge_C1", id(plan)), lambda: plan.dtp1.C_all, like),
-        constant(("edge_C2", id(plan)), lambda: plan.dtp2.C_all, like),
-        constant(("edge_Rg", id(plan)), lambda: plan.R_gate_im, like),
+        constant(("edge_C1", id(plan)), lambda: plan.dtp1.C_all, like, dtype=f32),
+        constant(("edge_C2", id(plan)), lambda: plan.dtp2.C_all, like, dtype=f32),
+        constant(("edge_Rg", id(plan)), lambda: plan.R_gate_im, like, dtype=f32),
     )
 
 
 def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     """The plain PyTorch version of the kernel: the same function, assembled
     from lane slices and dense products.  ``x1`` is i-major (rows, dim_in);
-    ``rad = (spec, arrays)`` from :func:`pack_radial`."""
+    ``rad = (spec, arrays)`` from :func:`pack_radial`.  In the mixed mode
+    (bfloat16 ``x1`` and ``W_av``) it rounds where the kernel rounds."""
     W_av, b_av, Dmat, W2, b2 = weights
-    C1, C2, Rg = _consts(plan, x1)
+    mixed = _is_mixed(x1, W_av, (attr, edge_scalars, b_av, Dmat, W2, b2) + tuple(rad[1]))
+    C1, C2, Rg = _consts(plan, attr)
     w_rad = _radial_fwd(rad[0], edge_scalars, rad[1])
 
     A1 = attr @ C1
+    if mixed:
+        A1, w_rad = A1.to(torch.bfloat16), w_rad.to(torch.bfloat16)
     pieces = []
     for off, mul1, iks, ws, _lane in plan.dtp1.pieces:
         acc = None
@@ -233,7 +267,9 @@ def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
             term = x1[:, off + i * mul1 : off + (i + 1) * mul1] * A1[:, c : c + 1]
             acc = term if acc is None else acc + term
         pieces.append(x1.new_zeros(x1.shape[0], mul1) if acc is None else acc * w_rad[:, ws : ws + mul1])
-    comb = torch.cat(pieces, dim=-1) @ W_av + b_av
+    Y1 = torch.cat(pieces, dim=-1)
+    # mixed: bfloat16 operands, float32 accumulation (their products are exact in float32)
+    comb = (Y1.float() @ W_av.float() if mixed else Y1 @ W_av) + b_av
 
     ma, sd, gd = plan.mul_alpha, plan.sd, plan.gd
     la = smooth_leaky_relu(comb[:, :ma]) * smooth_leaky_relu_norm()
@@ -254,43 +290,22 @@ def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
             acc = term if acc is None else acc + term
         pieces.append(mid.new_zeros(mid.shape[0], mul1) if acc is None else acc)
     val = torch.cat(pieces, dim=-1) @ W2 + b2
-    return logits, val
+    return logits, (val.to(torch.bfloat16) if mixed else val)
 
 
 # --------------------------------------------------------------------------- #
-# CUDA kernel: build, tables, launch
+# CUDA kernel: tables, launch
 # --------------------------------------------------------------------------- #
-_LIB = None
-build_log = ""
+_N_PTRS = 15  # pointer arguments of the C launchers after cfg and the three norms
 
 
-def build_library() -> float:
-    """Compile ``csrc/edge_kernel.cu`` for sm_90a (once per source hash) and
-    load it; returns the seconds spent."""
-    global _LIB, build_log
-    t0 = time.perf_counter()
-    if _LIB is not None:
-        return 0.0
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    so = _BUILD_DIR / f"edge_kernel_{digest}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SRC)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.edge_kernel_launch.restype = ctypes.c_int
-    lib.edge_kernel_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 15
-    _LIB = lib
-    return time.perf_counter() - t0
+@functools.lru_cache(maxsize=None)
+def _library():
+    lib = load_library("edge_kernel")
+    for fn in (lib.edge_kernel_launch, lib.edge_kernel_bf16_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * _N_PTRS
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,18 +346,24 @@ def _rad_dims(spec, arrays) -> Tuple[int, ...]:
     return tuple(dims)
 
 
-def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
-    global launches
+def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+    """Check the operands of one launch of the edge segment (device, dtypes,
+    shapes, contiguity; raises on what the kernels do not take) and return
+    ``(mixed, cfg, tensors)``: the int32 config the C launchers read and the
+    tensors ``(x1, attr, es, meta, rad_flat, W_av, b_av, Dmat, W2, b2, C1,
+    C2)`` in the launchers' order.  ``x1``, ``attr`` and ``edge_scalars``
+    are flat (rows, .)."""
     W_av, b_av, Dmat, W2, b2 = weights
     spec, arrays = rad
     rad_dims = _rad_dims(spec, arrays)
-    tensors = (x1, attr, edge_scalars, W_av, b_av, Dmat, W2, b2) + tuple(arrays)
-    for t in tensors:
-        if not (t.is_cuda and t.dtype == torch.float32 and t.device == x1.device):
-            raise ValueError("edge_kernel: every operand must be float32 on x1's CUDA device")
+    others = (attr, edge_scalars, b_av, Dmat, W2, b2) + tuple(arrays)
+    mixed = _is_mixed(x1, W_av, others)
+    for t in (x1, W_av) + others:
+        if not (t.is_cuda and t.device == x1.device):
+            raise ValueError(f"{name}: every operand must be on x1's CUDA device")
     for t in (W_av, b_av, Dmat, W2, b2):
         if not t.is_contiguous():
-            raise ValueError("edge_kernel: the folded weights must be contiguous (see prepare_weights)")
+            raise ValueError(f"{name}: the folded weights must be contiguous (see prepare_weights)")
     rows = x1.shape[0]
     S = edge_scalars.shape[1]
     n_comb, attn = W_av.shape[1], W2.shape[1]
@@ -359,22 +380,17 @@ def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
         "b2": (b2.shape, (1, plan.attn_dim)),
         "Dmat": (Dmat.shape, (ma, H)),
     }
-    for name, (got, want) in expect.items():
+    for op, (got, want) in expect.items():
         if tuple(got) != tuple(want):
-            raise ValueError(f"edge_kernel: {name} has shape {tuple(got)}, expected {want}")
+            raise ValueError(f"{name}: {op} has shape {tuple(got)}, expected {want}")
     if n_comb > _MAX_COLS or attn > _MAX_COLS:
-        raise ValueError(f"edge_kernel: product widths {n_comb}, {attn} exceed {_MAX_COLS}")
-    if rows == 0:
-        return x1.new_empty(0, H), x1.new_empty(0, attn)
-    x1, attr, edge_scalars = x1.contiguous(), attr.contiguous(), edge_scalars.contiguous()
-
-    build_library()
+        raise ValueError(f"{name}: product widths {n_comb}, {attn} exceed {_MAX_COLS}")
     tab = _tables(plan, spec, rad_dims)
     key = (id(plan), spec, rad_dims, x1.device)
     meta = _DEVICE_TABLES.get(key)
     if meta is None:
         meta = _DEVICE_TABLES[key] = torch.as_tensor(tab, device=x1.device)
-    C1, C2, _ = _consts(plan, x1)
+    C1, C2, _ = _consts(plan, attr)
     rad_flat = torch.cat([a.reshape(-1) for a in arrays]).contiguous()
     max_hidden = max(rad_dims[1:-1]) if len(rad_dims) > 2 else 0
     cfg = np.asarray(
@@ -384,18 +400,31 @@ def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
          n_comb, ma, sd, gd, td, H, attn, len(spec), max_hidden, sd + td],
         dtype=np.int32,
     )
+    tensors = (x1.contiguous(), attr.contiguous(), edge_scalars.contiguous(), meta, rad_flat,
+               W_av, b_av, Dmat, W2, b2, C1, C2)
+    return mixed, cfg, tensors
+
+
+def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+    global launches, launches_bf16
+    mixed, cfg, tensors = segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
+    rows, H, attn = x1.shape[0], plan.H, weights[3].shape[1]
     logits = torch.empty(rows, H, dtype=torch.float32, device=x1.device)
-    val = torch.empty(rows, attn, dtype=torch.float32, device=x1.device)
+    val = torch.empty(rows, attn, dtype=x1.dtype, device=x1.device)
+    if rows == 0:
+        return logits, val
+    lib = _library()
+    fn = lib.edge_kernel_bf16_launch if mixed else lib.edge_kernel_launch
     stream = torch.cuda.current_stream(x1.device).cuda_stream
-    ptrs = [x1, attr, edge_scalars, meta, rad_flat, W_av, b_av, Dmat, W2, b2, C1, C2, logits, val]
     with torch.cuda.device(x1.device):  # the C launcher uses the current device
-        err = _LIB.edge_kernel_launch(
-            cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(),
-            *[t.data_ptr() for t in ptrs], stream,
-        )
+        err = fn(cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(),
+                 *[t.data_ptr() for t in tensors + (logits, val)], stream)
     if err != 0:
         raise RuntimeError(f"edge_kernel: launch failed with cudaError {err}")
-    launches += 1
+    if mixed:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return logits, val
 
 
@@ -403,8 +432,9 @@ def edge_kernel(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     """``(logits (rows, H), val (rows, attn_dim))`` of the fused edge
     segment.  ``x1`` i-major (rows, dim_in), ``attr`` (rows, dim_sh),
     ``edge_scalars`` (rows, S) feed the in-kernel radial MLP; ``weights``
-    come from :func:`prepare_weights`, ``rad`` from :func:`pack_radial`.
-    CPU tensors take :func:`edge_core_plain`; CUDA tensors launch the kernel."""
+    come from :func:`prepare_weights` (through :func:`weights_bf16` for a
+    bfloat16 ``x1``), ``rad`` from :func:`pack_radial`.  CPU tensors take
+    :func:`edge_core_plain`; CUDA tensors launch the kernel."""
     if x1.is_cuda:
         return _launch(plan, x1, attr, edge_scalars, weights, rad)
     return edge_core_plain(plan, x1, attr, edge_scalars, weights, rad)

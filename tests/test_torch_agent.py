@@ -98,10 +98,17 @@ def test_agent_kernel_branch_matches_plain_on_cpu(tiny_config_dir):
     assert np.abs(out[0][-1] - out[0][0]).max() > 1e-3  # the poses moved
 
 
-@pytest.mark.parametrize("name", ["train_configs.yaml", "task_configs.yaml", "score_model_configs.yaml"])
-def test_port_config_copy_matches_reference(name):
-    """The port carries its own copy of the flagship's config directory."""
-    rel = Path("configs") / "panda_mug" / "pick_lowres" / name
+CONFIG_FILES = ["train_configs.yaml", "task_configs.yaml", "score_model_configs.yaml"]
+
+
+@pytest.mark.parametrize(
+    "model,name",
+    [pytest.param("pick_lowres", n, id=n) for n in CONFIG_FILES]
+    + [pytest.param(m, n, id=f"{m}-{n}") for m in ("pick_highres", "pick_ebm") for n in CONFIG_FILES],
+)
+def test_port_config_copy_matches_reference(model, name):
+    """The port carries its own copy of the pick models' config directories."""
+    rel = Path("configs") / "panda_mug" / model / name
     port, ref = ROOT / "diffusion_edf_tpu_torch" / rel, ROOT / "diffusion_edf_tpu" / rel
     assert port.read_bytes() == ref.read_bytes()
 
@@ -109,6 +116,7 @@ def test_port_config_copy_matches_reference(name):
 PICK_CHECKPOINTS = [
     ("panda_mug/pick_lowres", 939),
     ("panda_mug/pick_highres", None),
+    ("panda_mug/pick_ebm", None),
     ("panda_bottle/pick_lowres", None),
     ("panda_bowl/pick_lowres", None),
 ]
