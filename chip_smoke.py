@@ -8,11 +8,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
    hand-written CUDA kernels from ``diffusion_edf_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   the paths below give it, with CUDA-event timings of the kernel, the plain
-   version and a library yardstick, and its bound:
+   the paths below give it, with timings of the kernel (CUDA events for the
+   CUDA-core edge kernel; the device time of its kernels for each
+   tensor-core kernel, which must be below the CUDA-core kernel's), of the
+   plain version and of a library yardstick, and its bound:
    the edge kernel in float32 (max-abs gate 3e-4) and in its mixed bfloat16
    mode (gates below), and the fused attention kernel (3e-4) on the inputs
-   the model really hands it, with rows whose slots are all masked;
+   the model really hands it, with rows whose slots are all masked, and at
+   masks that stress its compaction of the valid slots (all valid, all
+   masked, one slot a row, a count that fills its tiles exactly, rows that
+   straddle tiles); the tensor-core kernels' SASS must hold ``HGMMA``;
 3. the first path: one ``pick_lowres`` cascade stage of ``agent.sample`` from
    the shipped checkpoint on 32 seeds with the 100-step schedule on the
    default ``edge_impl`` (the float32 edge kernel), with the launch counters
@@ -81,8 +86,11 @@ BF16_SAME_ROUNDING_GATE = 0.2
 ENERGY_GATE = 1e-3  # fused against plain, per seed, on energies of order 1 (seen: 2.3e-5)
 N_SEEDS, N_STEPS = 32, 100
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores,
-# dense bf16 on them, HBM3
-PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+# dense bf16 and dense TF32 on them, HBM3.  A float32 product on the tensor
+# cores is three TF32 products (hi/lo split), so it is held against a third of
+# the TF32 peak: 165 TFLOP/s, above the CUDA cores' 67.
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_BYTES = 67e12, 989e12, 495e12, 3.35e12
+PEAK_F32_TENSOR_FLOPS = PEAK_TF32_FLOPS / 3
 UNPROCESS = [dict(name="rescale", kwargs=dict(rescale_factor=0.01))]  # cm -> m
 SCHEDULE = dict(
     N_steps_list=[[N_STEPS // 2, N_STEPS - N_STEPS // 2]],
@@ -141,6 +149,25 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of ``fn`` in ms: the sum of the durations of
+    the CUDA kernels it launches, from ``torch.profiler`` over ``reps`` calls.
+    Unlike :func:`cuda_ms` it leaves out the host's time between launches,
+    which exceeds a short kernel's own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    return sum(e.device_time for e in events) / reps / 1e3
+
+
 def scene_clouds(seed: int = 0):
     """A 1024-point tabletop scene (metres): a table patch, a mug-sized
     cylinder and clutter; and a 256-point gripper cloud."""
@@ -166,9 +193,9 @@ def seed_poses(n: int, seed: int = 1) -> np.ndarray:
 
 
 def segment_work(ga, mixed: bool = False):
-    """(flops per edge row, those of them with bfloat16 operands, weight
-    bytes) of the edge segment of one ``GraphAttention``.  ``mixed``: ``W_av``
-    counts 2 bytes an element and its product takes bfloat16 operands."""
+    """(flops per edge row, those of them in the ``Y1 @ W_av`` product, those
+    in the ``Y2 @ W2`` product, weight bytes) of the edge segment of one
+    ``GraphAttention``.  ``mixed``: ``W_av`` counts 2 bytes an element."""
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
 
     plan = ga.plan
@@ -182,37 +209,41 @@ def segment_work(ga, mixed: bool = False):
     per_row += 2 * Dmat.shape[0] * Dmat.shape[1]
     weight_bytes = 4 * (sum(a.numel() for a in arrays) + W2.numel() + Dmat.numel()
                         + plan.dtp1.C_all.size + plan.dtp2.C_all.size) + (2 if mixed else 4) * W_av.numel()
-    return per_row, (2 * W_av.shape[0] * W_av.shape[1] if mixed else 0), weight_bytes
+    return per_row, 2 * W_av.shape[0] * W_av.shape[1], 2 * W2.shape[0] * W2.shape[1], weight_bytes
 
 
 def edge_work(ga, rows: int, S: int, mixed: bool = False):
-    """(flops, those of them with bfloat16 operands, bytes) of one
-    edge-kernel call: the products this call does and each input read once,
-    each output written once.  ``mixed``: the message and ``val`` count 2
-    bytes an element."""
+    """(flops, those of them in the first and in the second folded product,
+    bytes) of one edge-kernel call: the products this call does and each
+    input read once, each output written once.  ``mixed``: the message and
+    ``val`` count 2 bytes an element."""
     plan = ga.plan
-    per_row, per_row_bf16, weight_bytes = segment_work(ga, mixed)
+    per_row, p1, p2, weight_bytes = segment_work(ga, mixed)
     wide = 2 if mixed else 4
     row_bytes = wide * (plan.dim_in + plan.attn_dim) + 4 * (plan.dim_sh + S + plan.H)
-    return per_row * rows, per_row_bf16 * rows, row_bytes * rows + weight_bytes
+    return per_row * rows, p1 * rows, p2 * rows, row_bytes * rows + weight_bytes
 
 
 def attention_work(ga, nd: int, k: int, S: int, n_valid: int, use_pre: bool, use_post: bool):
-    """(flops, bytes) of one fused-attention call: the segment on ``n_valid``
-    slots plus their softmax and weighted sum; every input read once (masked
-    slots too), the (Nd, attn) output written once.  Neither logits nor val
-    count: they never reach device memory."""
+    """(flops, those of them in the two folded products, bytes) of one
+    fused-attention call: the segment on ``n_valid`` slots plus their softmax
+    and weighted sum; every input read once (masked slots too), the (Nd,
+    attn) output written once.  Neither logits nor val count: they never
+    reach device memory."""
     plan = ga.plan
-    per_row, _, weight_bytes = segment_work(ga)
+    per_row, p1, p2, weight_bytes = segment_work(ga)
     per_row += 4 * plan.H + 2 * plan.attn_dim  # exp / scale per head, weighted sum per lane
     slot_bytes = 4 * (plan.dim_in + plan.dim_sh + S + int(use_pre) + int(use_post)) + 1
-    return per_row * n_valid, slot_bytes * nd * k + weight_bytes + 4 * nd * plan.attn_dim
+    return per_row * n_valid, (p1 + p2) * n_valid, slot_bytes * nd * k + weight_bytes + 4 * nd * plan.attn_dim
 
 
-def bound(flops: float, nbytes: float, flops_bf16: float = 0.0):
+def bound(flops: float, nbytes: float, flops_bf16: float = 0.0, flops_f32_tensor: float = 0.0):
     """(bound ms, what binds): ``flops_bf16`` of the ``flops`` take bfloat16
-    operands and are held against that type's peak, the rest against f32's."""
-    t_ops = (flops - flops_bf16) / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+    operands and ``flops_f32_tensor`` are float32 products that run on the
+    tensor cores as 3xTF32; each is held against its own peak, the rest
+    against the CUDA cores' float32 peak."""
+    t_ops = ((flops - flops_bf16 - flops_f32_tensor) / PEAK_F32_FLOPS + flops_bf16 / PEAK_BF16_FLOPS
+             + flops_f32_tensor / PEAK_F32_TENSOR_FLOPS)
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -311,6 +342,13 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    # the tensor-core kernels really hold warpgroup products: HGMMA in the built libraries' SASS
+    for name in cuda_build.SOURCES:
+        n_gmma = cuda_build.sass_count(name, "HGMMA")
+        log(f"  SASS of {name}: {n_gmma} HGMMA instructions (cuobjdump -sass)")
+        if n_gmma == 0:
+            log("FAIL: a tensor-core kernel was built without warpgroup products")
+            return 1
 
     # ---- phase 2a: K1 against its plain version at the main path's shapes ----
     bundle = load_model_bundle(CONFIG, CHECKPOINT, device=dev)
@@ -361,7 +399,7 @@ def main() -> int:
             ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, x1, attr, es, weights, rad))
             plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, x1, attr, es, weights, rad))
             library_ms = library_products_ms(weights, rows, g, dev)
-            flops, _, nbytes = edge_work(ga, rows, S)
+            flops, _, _, nbytes = edge_work(ga, rows, S)
             bound_ms, bound_by = bound(flops, nbytes)
             log(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
@@ -384,16 +422,23 @@ def main() -> int:
             if not ok:
                 return 1
             k2_err = max(k2_err, err_l, err_v)
-            ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
+            ms = device_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
+            event_ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
             plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, xb, attr, es, wb, rad))
             library_ms = library_products_ms(wb, rows, g, dev, mixed=True)
-            flops, flops_bf16, nbytes = edge_work(ga, rows, S, mixed=True)
-            # the Y1 . W_av product against the bf16 peak, every other product against the f32 peak
-            bound_ms, bound_by = bound(flops, nbytes, flops_bf16)
-            log(f"K2-bf16 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (two matmuls, the first "
-                f"in bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops_bf16 / 1e9:.2f} GFLOP "
-                f"at the bf16 peak, {(flops - flops_bf16) / 1e9:.2f} at the f32 peak, {nbytes / 1e6:.2f} MB; "
-                f"{bound(flops, nbytes)[0]:.4f} ms with all of it at the f32 peak)")
+            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, mixed=True)
+            # Y1 . W_av against the bf16 peak, Y2 . W2 (3xTF32) against a third of the TF32 peak, the rest
+            # against the CUDA cores' f32 peak
+            bound_ms, bound_by = bound(flops, nbytes, flops_p1, flops_p2)
+            log(f"K2-bf16 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host "
+                f"included; K1 {k1[label]['ms']:.4f}), plain {plain_ms:.4f} ms, library (two matmuls, the first "
+                f"in bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops_p1 / 1e9:.2f} GFLOP "
+                f"at the bf16 peak, {flops_p2 / 1e9:.2f} at a third of the TF32 peak, "
+                f"{(flops - flops_p1 - flops_p2) / 1e9:.2f} at the f32 peak, {nbytes / 1e6:.2f} MB; "
+                f"{bound(flops, nbytes, flops_p1)[0]:.4f} ms with Y2 . W2 at the CUDA cores' f32 peak)")
+            if not ms < k1[label]["ms"]:
+                log("FAIL: the mixed tensor-core kernel is no faster than the float32 CUDA-core kernel")
+                return 1
             k2[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
             del xb, bl, bv, ql, qv
             del x1, attr, es, kl, kv, pl, pv
@@ -415,6 +460,23 @@ def main() -> int:
                -torch.rand(nd_cap, K_cap, generator=g, device=dev), None)
     k3 = {}
     k3_err = 0.0
+
+    def stress_masks(mask):
+        """Masks that stress the compaction, from a mask of the shape's own fill."""
+        nd, k = mask.shape
+        flat = mask.reshape(-1)
+        one = torch.zeros_like(mask)
+        one[torch.arange(nd, device=dev), (7 * torch.arange(nd, device=dev)) % k] = True
+        keep = (int(flat.sum()) // 64) * 64  # the first valid slots, as many as fill whole tiles
+        exact = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
+        straddle = torch.zeros_like(mask)
+        straddle[:, : min(k, 40)] = True  # 40 a row: every second row lies across a tile boundary
+        straddle[1] = True  # and one row over several tiles
+        straddle[2] = False
+        return (("all valid", torch.ones_like(mask)), ("all masked", torch.zeros_like(mask)),
+                ("one valid slot a row", one), (f"{keep} valid: whole tiles exactly", exact),
+                ("rows that straddle tiles", straddle))
+
     with torch.no_grad():
         for label, ga, (msg, attr, sc, mask, pre, post) in (
                 ("tensor_field", tga, real_tf), ("extractor_pool_0", pga, real_pool), ("tensor_field_k_cap", tga, cap)):
@@ -424,23 +486,29 @@ def main() -> int:
             synth_post = torch.rand(nd, k, generator=g, device=dev)
             weights, rad = ga._kernel_weights()
             hoc = _head_of_col(ga.irreps_head, ga.H, ga.irreps_attn.dim)
-            for variant, p, q in (("as given", pre, post), ("no pre, no post", None, None),
-                                  ("pre and post", pre if pre is not None else -synth_post, synth_post)):
-                args = (ga.plan, hoc, msg, attr, sc, mask, p, q, weights, rad)
+            variants = [(f"the path's mask, {v}", mask, p, q) for v, p, q in (
+                ("as given", pre, post), ("no pre, no post", None, None),
+                ("pre and post", pre if pre is not None else -synth_post, synth_post))]
+            variants += [(v, m, pre, post) for v, m in stress_masks(mask)]
+            for variant, m, p, q in variants:
+                args = (ga.plan, hoc, msg, attr, sc, m, p, q, weights, rad)
                 out = fa.fused_attention(*args)
                 torch.cuda.synchronize()
                 ref = fa.fused_attention_plain(*args)
                 err = float((out - ref).abs().max())
+                empty = ~m.any(dim=1)
+                valid, tiles, fill = fa.tile_stats(m)
                 ok = (err <= KERNEL_GATE and bool(torch.isfinite(out).all())
-                      and float(out[0].abs().max()) == 0.0 and float(out[nd // 2].abs().max()) == 0.0)
-                log(f"K3 {label} ({variant}): Nd {nd} K {k} width {ga.plan.dim_in}, {int(mask.sum())} of {nd * k} "
-                    f"slots valid, max_abs_err {err:.3g} (gate {KERNEL_GATE}), all-masked rows exactly 0 "
-                    f"{'ok' if ok else 'FAIL'}")
+                      and (not bool(empty.any()) or float(out[empty].abs().max()) == 0.0))
+                log(f"K3 {label} ({variant}): Nd {nd} K {k} width {ga.plan.dim_in}, {valid} of {nd * k} slots "
+                    f"valid, {tiles} tiles of 64 at fill {fill:.3f} (grid {-(-nd * k // 64)}), max_abs_err {err:.3g} "
+                    f"(gate {KERNEL_GATE}), {int(empty.sum())} all-masked rows exactly 0 {'ok' if ok else 'FAIL'}")
                 if not ok:
                     return 1
                 k3_err = max(k3_err, err)
             args = (ga.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
-            ms = cuda_ms(lambda: fa.fused_attention(*args))
+            ms = device_ms(lambda: fa.fused_attention(*args))
+            event_ms = cuda_ms(lambda: fa.fused_attention(*args))
             plain_ms = cuda_ms(lambda: fa.fused_attention_plain(*args))
             library_ms = library_products_ms(weights, nd * k, g, dev)
             kw = dict(edge_pre_attn_logit=pre, edge_post_attn=post)
@@ -449,14 +517,21 @@ def main() -> int:
                 ga.edge_impl = impl
                 impl_ms[impl] = cuda_ms(lambda: ga(msg, attr, sc, mask, **kw))
             ga.edge_impl = None
-            # bound_ms counts what this mask needs; the kernel computes every slot, as K1 does
-            flops, nbytes = attention_work(ga, nd, k, sc.shape[-1], int(mask.sum()), pre is not None, post is not None)
-            bound_ms, bound_by = bound(flops, nbytes)
-            all_ms, all_by = bound(*attention_work(ga, nd, k, sc.shape[-1], nd * k, pre is not None, post is not None))
-            log(f"K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP on the valid slots, "
-                f"{nbytes / 1e6:.2f} MB; on all {nd * k} slots {all_ms:.4f} ms by {all_by}); whole GraphAttention: K1 + PyTorch softmax tail {impl_ms['kernel']:.4f} ms, "
-                f"K3 {impl_ms['fused']:.4f} ms")
+            # bound_ms counts what this mask needs, which is what the kernel computes; its two folded
+            # products (3xTF32) against a third of the TF32 peak, the rest against the CUDA cores' f32 peak
+            valid, tiles, fill = fa.tile_stats(mask)
+            flops, flops_tc, nbytes = attention_work(ga, nd, k, sc.shape[-1], valid, pre is not None, post is not None)
+            bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_tc)
+            cuda_core_ms, _ = bound(flops, nbytes)
+            log(f"K3 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host included; "
+                f"K1 on every slot {k1[label]['ms']:.4f}), {valid} valid slots in {tiles} tiles at fill {fill:.3f}, "
+                f"plain {plain_ms:.4f} ms, library (two matmuls on every slot) {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP on the valid slots, {nbytes / 1e6:.2f} "
+                f"MB; {cuda_core_ms:.4f} ms with the products at the CUDA cores' f32 peak); whole GraphAttention: "
+                f"K1 + PyTorch softmax tail {impl_ms['kernel']:.4f} ms, K3 {impl_ms['fused']:.4f} ms")
+            if not ms < k1[label]["ms"]:
+                log("FAIL: the fused attention kernel is no faster than the float32 CUDA-core edge kernel")
+                return 1
             k3[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
     del real_tf, real_pool, cap
 

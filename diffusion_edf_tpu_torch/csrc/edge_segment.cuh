@@ -1,5 +1,6 @@
 // The per-edge segment of GraphAttention as device code for NVIDIA Hopper
-// (sm_90a), shared by edge_kernel.cu and fused_attention.cu.
+// (sm_90a) on the CUDA cores: what the float32 edge kernel of edge_kernel.cu
+// runs.
 //
 // edge_segment() takes one tile of TR edge rows through
 //   w   = radial MLP(edge scalars)      Linear+LN(fast var, eps 1e-5)+SiLU ..., Linear + offset
@@ -19,18 +20,9 @@
 // L2.  The radial MLP runs in the block, so the per-edge radial weights never
 // reach device memory.
 //
-// The template parameter T is the type of the message x1 and of W_av:
-//   float          everything f32 (plain FMA, no fast-math);
-//   __nv_bfloat16  selective mixed precision: the message lanes, A1, every
-//                  DTP1 piece (each product and each sum rounded to bf16, the
-//                  radial weight rounded before its product) and W_av are
-//                  bf16; the Y1 @ W_av product accumulates in f32 and all
-//                  after it is f32.  A bf16 value is held as the float it
-//                  converts to: the product of two bf16 values is exact in
-//                  f32, so rounding the f32 result gives the bf16 result, and
-//                  a sum is rounded from its f32 sum as PyTorch rounds it.
-//                  __fmul_rn / __fadd_rn keep the compiler from contracting a
-//                  product and a sum into one FMA across a rounding.
+// Everything is f32 (plain FMA, no fast-math).  The tensor-core version of the
+// same segment, which the mixed bfloat16 edge kernel and the fused attention
+// kernel run, is edge_segment_mma() of edge_segment_mma.cuh.
 //
 // The host-side tables (piece offsets, term lists, weight-block starts, gate
 // indices, radial widths) come from the port's build_edge_plan.
@@ -96,23 +88,10 @@ __device__ __forceinline__ Tables split_tables(const Cfg& c, const int* __restri
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-__device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-
 // Round to bf16 (nearest even) and hold the result as a float.
 __device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
-template <typename T>
-struct is_bf16 {
-  static constexpr bool value = false;
-};
-template <>
-struct is_bf16<__nv_bfloat16> {
-  static constexpr bool value = true;
-};
-
 // A = attr_tile @ C  (TR x nA) into dst (row stride nA); rows past the end are zero.
-template <bool ROUND_BF16>
 __device__ __forceinline__ void attr_product(const Cfg& c, const float* __restrict__ attr, int row0, int nrows,
                              const float* __restrict__ C, int nA, float* dst) {
   for (int e = threadIdx.x; e < TR * nA; e += NTHREADS) {
@@ -122,19 +101,18 @@ __device__ __forceinline__ void attr_product(const Cfg& c, const float* __restri
       const float* a = attr + (size_t)(row0 + r) * c.dim_sh;
       for (int j = 0; j < c.dim_sh; ++j) s += a[j] * __ldg(C + j * nA + col);
     }
-    dst[r * nA + col] = ROUND_BF16 ? rbf(s) : s;
+    dst[r * nA + col] = s;
   }
 }
 
 // acc[rr][j] += sum over the DTP's pieces of piece(r, u) * W[lane + u, col]
 // where piece(r, u) = sum_t x(r, off + i_t * mul + u) * A(r, c_t) (* w(r, ws + u)).
 // x rows are read from `xg` (global, stride ldx) or `xs` (shared, stride ldx).
-// With BF16 every product and sum of a piece is rounded to bf16.
-template <bool X_GLOBAL, bool WEIGHTED, bool BF16, typename XT, typename WT>
-__device__ __forceinline__ void dtp_product(const XT* __restrict__ xg, const float* xs, int ldx, int row0, int nrows,
+template <bool X_GLOBAL, bool WEIGHTED>
+__device__ __forceinline__ void dtp_product(const float* __restrict__ xg, const float* xs, int ldx, int row0, int nrows,
                             const int* __restrict__ pieces, const int* __restrict__ terms, int np,
                             const float* A, int nA, const float* wr, int ldw, float* P,
-                            const WT* __restrict__ W, int ncol, float (&acc)[RPT][MAXJ]) {
+                            const float* __restrict__ W, int ncol, float (&acc)[RPT][MAXJ]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int p = 0; p < np; ++p) {
     const int off = __ldg(pieces + 6 * p), mul = __ldg(pieces + 6 * p + 1);
@@ -147,30 +125,22 @@ __device__ __forceinline__ void dtp_product(const XT* __restrict__ xg, const flo
         for (int t = 0; t < nt; ++t) {
           int i = __ldg(terms + 2 * (ts + t)), col = __ldg(terms + 2 * (ts + t) + 1);
           int xi = off + i * mul + u;
-          float xv = X_GLOBAL ? ldf(xg + (size_t)(row0 + r) * ldx + xi) : xs[r * ldx + xi];
-          if (BF16) {
-            float term = rbf(__fmul_rn(xv, A[r * nA + col]));
-            s = t == 0 ? term : rbf(__fadd_rn(s, term));
-          } else {
-            s += xv * A[r * nA + col];
-          }
+          float xv = X_GLOBAL ? __ldg(xg + (size_t)(row0 + r) * ldx + xi) : xs[r * ldx + xi];
+          s += xv * A[r * nA + col];
         }
-        if (WEIGHTED) {
-          if (BF16) s = rbf(__fmul_rn(s, rbf(wr[r * ldw + ws + u])));
-          else s *= wr[r * ldw + ws + u];
-        }
+        if (WEIGHTED) s *= wr[r * ldw + ws + u];
       }
       P[r * MAXW + u] = s;
     }
     __syncthreads();
-    const WT* Wp = W + (size_t)wl * ncol;
+    const float* Wp = W + (size_t)wl * ncol;
 #pragma unroll 2
     for (int k = 0; k < mul; ++k) {
       float w[MAXJ];
 #pragma unroll
       for (int j = 0; j < MAXJ; ++j) {
         int col = lane + 32 * j;
-        w[j] = col < ncol ? ldf(Wp + (size_t)k * ncol + col) : 0.f;
+        w[j] = col < ncol ? __ldg(Wp + (size_t)k * ncol + col) : 0.f;
       }
 #pragma unroll
       for (int rr = 0; rr < RPT; ++rr) {
@@ -188,16 +158,14 @@ __device__ __forceinline__ void dtp_product(const XT* __restrict__ xg, const flo
 // row r < lg_rows go to lg[r * H + h] (global or shared memory); acc returns
 // val without its bias: thread (warp, lane) holds tile rows warp * RPT + rr
 // and columns lane + 32 * j.  Ends on a block-wide barrier.
-template <typename T>
 __device__ __forceinline__ void edge_segment(const Cfg& c, float* R0, float* R1, int row0, int nrows,
-                             const T* __restrict__ x1, const float* __restrict__ attr,
+                             const float* __restrict__ x1, const float* __restrict__ attr,
                              const float* __restrict__ es, const Tables& tb,
-                             const float* __restrict__ rad, const T* __restrict__ W_av,
+                             const float* __restrict__ rad, const float* __restrict__ W_av,
                              const float* __restrict__ b_av, const float* __restrict__ Dmat,
                              const float* __restrict__ W2, const float* __restrict__ C1,
                              const float* __restrict__ C2, float* lg, int lg_rows,
                              float (&acc)[RPT][MAXJ]) {
-  constexpr bool BF16 = is_bf16<T>::value;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   // ---- radial MLP: ping-pong in R1, the last layer writes w (TR x numel1) into R0
@@ -263,9 +231,9 @@ __device__ __forceinline__ void edge_segment(const Cfg& c, float* R0, float* R1,
     for (int j = 0; j < MAXJ; ++j) acc[rr][j] = 0.f;
   float* A1 = R1;
   float* P1 = R1 + TR * c.nA1;
-  attr_product<BF16>(c, attr, row0, nrows, C1, c.nA1, A1);
+  attr_product(c, attr, row0, nrows, C1, c.nA1, A1);
   __syncthreads();
-  dtp_product<true, true, BF16>(x1, nullptr, c.dim_in, row0, nrows, tb.pieces1, tb.terms1, c.np1, A1, c.nA1,
+  dtp_product<true, true>(x1, nullptr, c.dim_in, row0, nrows, tb.pieces1, tb.terms1, c.np1, A1, c.nA1,
                                 R0, c.numel1, P1, W_av, c.n_comb, acc);
 
   // ---- cmb = acc + b_av into R0 (w is dead)
@@ -317,9 +285,9 @@ __device__ __forceinline__ void edge_segment(const Cfg& c, float* R0, float* R1,
     for (int j = 0; j < MAXJ; ++j) acc[rr][j] = 0.f;
   float* A2 = R0;
   float* P2 = R0 + TR * c.nA2;
-  attr_product<false>(c, attr, row0, nrows, C2, c.nA2, A2);
+  attr_product(c, attr, row0, nrows, C2, c.nA2, A2);
   __syncthreads();
-  dtp_product<false, false, false>((const float*)nullptr, mid, c.mid_dim, row0, nrows, tb.pieces2, tb.terms2,
+  dtp_product<false, false>(nullptr, mid, c.mid_dim, row0, nrows, tb.pieces2, tb.terms2,
                                    c.np2, A2, c.nA2, nullptr, 0, P2, W2, c.attn, acc);
 }
 

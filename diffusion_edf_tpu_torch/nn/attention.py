@@ -11,14 +11,15 @@ the weighted sum and the output projection.
 The per-edge segment has four implementations, chosen by ``edge_impl``:
 
 * ``"plain"``: the module path, one PyTorch op per step;
-* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel` in float32, then the
-  masked softmax in PyTorch;
-* ``"kernel_bf16"``: the same kernel in its selective mixed precision: only
-  the message is cast to bfloat16 (and ``W_av`` with it); logits come back
-  float32, the value bfloat16 and is widened to float32 for the softmax tail;
+* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel` in float32 (on the GPU
+  its CUDA-core kernel), then the masked softmax in PyTorch;
+* ``"kernel_bf16"``: the same wrapper in its selective mixed precision (on
+  the GPU its tensor-core kernel): only the message is cast to bfloat16 (and
+  ``W_av`` with it); logits come back float32, the value bfloat16 and is
+  widened to float32 for the softmax tail;
 * ``"fused"``: :func:`..nn.fused_attention.fused_attention`, which takes the
   place of everything between the message and the output projection, the
-  softmax included.
+  softmax included, and on the GPU computes only the slots the mask keeps.
 
 Each wrapper launches its hand-written CUDA kernel on CUDA tensors and runs
 its plain version on CPU tensors.  ``edge_impl=None`` picks ``"kernel"`` for

@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["SOURCES", "build_all", "load_library", "build_logs"]
+__all__ = ["SOURCES", "build_all", "load_library", "load_variants", "build_logs", "sass_count"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -28,20 +28,21 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas -v) per source built by this process
 
 
-def _target(name: str) -> Path:
+def _target(name: str, defines: Sequence[str] = ()) -> Path:
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update(" ".join(defines).encode())
     return _BUILD_DIR / f"{name}_{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str, so: Path) -> Tuple[subprocess.Popen, str]:
+def _start(name: str, so: Path, defines: Sequence[str] = ()) -> Tuple[subprocess.Popen, str]:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_CSRC / f"{name}.cu")]
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_CSRC / f"{name}.cu")] + [f"-D{d}" for d in defines]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp
 
 
@@ -67,8 +68,33 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+def load_variants(name: str, variants: Sequence[Sequence[str]]) -> List[ctypes.CDLL]:
+    """``csrc/<name>.cu`` built once per set of preprocessor defines in
+    ``variants`` (all at the same time) and loaded: for measurements that
+    compare a kernel with and without a phase.  The libraries do not replace
+    the one :func:`load_library` returns."""
+    targets = [_target(name, d) for d in variants]
+    running = [(so, *_start(name, so, d)) for so, d in zip(targets, variants) if not so.exists()]
+    for so, proc, tmp in running:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n{out}")
+        os.replace(tmp, so)
+    return [ctypes.CDLL(str(so)) for so in targets]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if need be."""
     if name not in _LIBS:
         build_all([name])
     return _LIBS[name]
+
+
+def sass_count(name: str, mnemonic: str) -> int:
+    """How many instructions of the built library of ``csrc/<name>.cu`` carry
+    ``mnemonic`` in their SASS, by the toolkit's ``cuobjdump`` (raises where
+    the toolkit has none).  ``HGMMA`` is the tensor cores' warpgroup product."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True, text=True, check=True).stdout
+    return sum(mnemonic in line for line in out.splitlines())

@@ -29,6 +29,14 @@ Any other combination raises.
 :func:`edge_kernel` is the wrapper: on a CPU tensor it runs
 :func:`edge_core_plain`; on a CUDA tensor it launches the kernel, built at
 first use with ``nvcc`` into ``build/`` at the repository root, or raises.
+The float32 kernel runs on the CUDA cores from ``prepare_weights``' matrices
+as they are.  The mixed kernel, and the fused attention kernel of
+``nn/fused_attention.py``, run both folded products on the tensor cores
+(``csrc/edge_segment_mma.cuh``) and read the weights in another form, built
+once per set of weights by :func:`mma_operands`: transposed, split into TF32
+``hi + lo`` parts where the product is float32, padded, and cut into the
+chunks of 16 lanes that the kernel stages through shared memory
+(:func:`chunk_schedule`).
 """
 from __future__ import annotations
 
@@ -52,9 +60,18 @@ __all__ = [
     "prepare_weights",
     "pack_radial",
     "weights_bf16",
+    "EdgeWeights",
+    "chunk_schedule",
+    "group_records",
+    "split_tf32",
+    "chunk_images",
+    "mma_operands",
     "edge_core_plain",
     "edge_kernel",
     "segment_operands",
+    "mma_segment_operands",
+    "raise_launch_error",
+    "bind",
     "launches",
     "launches_bf16",
 ]
@@ -160,7 +177,19 @@ def _val_out_irreps(plan: EdgePlan) -> Irreps:
     return irreps_mid if g.dim == 0 else (s + g + t).simplify()
 
 
-def prepare_weights(plan: EdgePlan, W_av, b_av, Dmat, w2, W_lin2, b_lin2):
+class EdgeWeights(tuple):
+    """The folded weights ``(W_av, b_av, Dmat, W2, b2)`` of one
+    ``GraphAttention``.  A plain 5-tuple to its readers; it also keeps the
+    device operands of the tensor-core kernels (:func:`mma_operands`), which
+    are built once per radial MLP it is used with."""
+
+    def __new__(cls, items):
+        self = super().__new__(cls, items)
+        self._mma = {}
+        return self
+
+
+def prepare_weights(plan: EdgePlan, W_av, b_av, Dmat, w2, W_lin2, b_lin2) -> EdgeWeights:
     """Fold the layout permutations and DTP2's shared weights into dense
     matrices: ``W_av`` rows follow the kernel's DTP1 lane order and its
     columns ``[alpha | i-major value]``; ``W2`` rows follow the DTP2 lane
@@ -174,8 +203,8 @@ def prepare_weights(plan: EdgePlan, W_av, b_av, Dmat, w2, W_lin2, b_lin2):
     for _off, mul1, _iks, ws, lane in plan.dtp2.pieces:
         w2_lane[lane : lane + mul1] = np.arange(ws, ws + mul1)
     W2_k = W_lin2[list(plan.dtp2.cm_src)] * w2[w2_lane][:, None]
-    return (W_av_k.contiguous(), b_av_k.contiguous(), Dmat.contiguous(),
-            W2_k.contiguous(), b_lin2[None, :].contiguous())
+    return EdgeWeights((W_av_k.contiguous(), b_av_k.contiguous(), Dmat.contiguous(),
+                        W2_k.contiguous(), b_lin2[None, :].contiguous()))
 
 
 def pack_radial(rad_layers, rad_off):
@@ -221,7 +250,7 @@ def _radial_fwd(spec, x, arrays):
 def weights_bf16(weights):
     """``prepare_weights``' tuple with ``W_av`` cast to bfloat16: the operand
     set of the mixed-precision mode."""
-    return (weights[0].to(torch.bfloat16),) + tuple(weights[1:])
+    return EdgeWeights((weights[0].to(torch.bfloat16),) + tuple(weights[1:]))
 
 
 def _is_mixed(x1, W_av, f32_operands) -> bool:
@@ -294,25 +323,49 @@ def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
 
 
 # --------------------------------------------------------------------------- #
-# CUDA kernel: tables, launch
+# CUDA kernels: tables, operands, launch
 # --------------------------------------------------------------------------- #
-_N_PTRS = 15  # pointer arguments of the C launchers after cfg and the three norms
+_N_PTRS = 15  # pointer arguments of the float32 launcher after cfg and the three norms
+_N_PTRS_MMA = 17  # those of the mixed launcher
+_CHUNK = 16  # Y lanes per staged chunk of the tensor-core kernels
+_GROUP = 8  # lanes that share one piece: every piece is padded to a multiple of it
+_W_BLOCK = 64  # columns of the radial MLP's last layer the tensor-core kernels compute at a time
+_NO_FIT = -1  # the C launchers' code for "no instantiation for these widths, or over the shared memory"
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("edge_kernel")
-    for fn in (lib.edge_kernel_launch, lib.edge_kernel_bf16_launch):
+def bind(lib):
+    """Declare the C launchers' signatures on a loaded library of ``csrc/edge_kernel.cu``."""
+    for fn, n in ((lib.edge_kernel_launch, _N_PTRS), (lib.edge_kernel_bf16_launch, _N_PTRS_MMA)):
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * _N_PTRS
+        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * n
     return lib
 
 
 @functools.lru_cache(maxsize=None)
+def _library():
+    return bind(load_library("edge_kernel"))
+
+
+def _check_radial(spec) -> None:
+    assert all(b and ln for b, ln in spec[:-1]) and spec[-1] == (False, False), (
+        "kernel radial MLP: hidden layers with bias + LayerNorm, last layer with offset"
+    )
+
+
+def _gate_index(plan: EdgePlan) -> List[int]:
+    """The gate of every gated lane (empty without gates)."""
+    if not plan.gd:
+        return []
+    R = plan.R_gate_im
+    assert np.all(R.sum(axis=0) == 1.0)
+    return list(np.argmax(R, axis=0))
+
+
+@functools.lru_cache(maxsize=None)
 def _tables(plan: EdgePlan, spec: Tuple[Tuple[bool, bool], ...], rad_dims: Tuple[int, ...]) -> np.ndarray:
-    """int32 tables the kernel walks: per DTP the pieces ``(off, mul1,
-    term start, term count, weight start, lane)`` and terms ``(i, A col)``;
-    the gate index of every gated lane; the radial layer widths."""
+    """int32 tables the float32 kernel walks: per DTP the pieces ``(off,
+    mul1, term start, term count, weight start, lane)`` and terms ``(i, A
+    col)``; the gate index of every gated lane; the radial layer widths."""
     out: List[int] = []
     for dp in (plan.dtp1, plan.dtp2):
         pieces, terms = [], []
@@ -321,19 +374,101 @@ def _tables(plan: EdgePlan, spec: Tuple[Tuple[bool, bool], ...], rad_dims: Tuple
             pieces.append((off, mul1, len(terms), len(iks), ws, lane))
             terms.extend(iks)
         out += [v for p in pieces for v in p] + [v for t in terms for v in t]
-    if plan.gd:
-        R = plan.R_gate_im
-        assert np.all(R.sum(axis=0) == 1.0)
-        out += list(np.argmax(R, axis=0))
-    hidden = spec[:-1]
-    assert all(b and ln for b, ln in hidden) and spec[-1] == (False, False), (
-        "kernel radial MLP: hidden layers with bias + LayerNorm, last layer with offset"
-    )
-    out += list(rad_dims)
+    _check_radial(spec)
+    out += _gate_index(plan) + list(rad_dims)
+    return np.asarray(out, dtype=np.int32)
+
+
+def chunk_schedule(dtp: _DtpPlan):
+    """The K-chunk schedule of one DTP for the tensor-core kernels: its
+    pieces laid end to end, each padded to a multiple of 8 lanes, the whole
+    padded to a multiple of 16, cut into chunks of 16 lanes.  Returns
+    ``(lane_src, lane0, group_piece)``: for every padded lane the DTP lane it
+    holds (-1 for padding); for every piece its first padded lane; for every
+    group of 8 padded lanes its piece (-1 for padding).  Chunk ``c`` is padded
+    lanes ``16 c .. 16 c + 15``, groups ``2 c`` and ``2 c + 1``."""
+    lane_src: List[int] = []
+    lane0: List[int] = []
+    group_piece: List[int] = []
+    for p, (_off, mul1, _iks, _ws, lane) in enumerate(dtp.pieces):
+        lane0.append(len(lane_src))
+        width = -(-mul1 // _GROUP) * _GROUP
+        lane_src += list(range(lane, lane + mul1)) + [-1] * (width - mul1)
+        group_piece += [p] * (width // _GROUP)
+    pad = -len(lane_src) % _CHUNK
+    lane_src += [-1] * pad
+    group_piece += [-1] * (pad // _GROUP)
+    return np.asarray(lane_src), np.asarray(lane0), np.asarray(group_piece)
+
+
+_GROUP_RECORD = 16  # ints per group record of the tensor-core kernels
+_MAX_TERMS = _GROUP_RECORD - 5
+
+
+def group_records(dtp: _DtpPlan, weighted: bool) -> np.ndarray:
+    """One record of 16 ints per group of 8 padded lanes of
+    :func:`chunk_schedule`, everything a thread of the tensor-core kernels
+    needs to build the group's lanes: ``[0]`` the x lane of the group's first
+    element for ``i = 0``; ``[1]`` how many of its 8 lanes are real (0 for
+    padding); ``[2]`` the number of terms; ``[3]`` the radial-weight column of
+    its first element (-1 when not ``weighted``); ``[4]`` the last block of 64
+    radial-weight columns its chunk of 16 lanes reads (0 when not
+    ``weighted``); ``[5:]`` per term ``(i * mul1) << 16 | A column`` (unused
+    slots repeat the first term, so their loads stay in range).  The kernels
+    read lanes in pairs, so multiplicities and lane offsets must be even."""
+    _, lane0, group_piece = chunk_schedule(dtp)
+    out = np.zeros((len(group_piece), _GROUP_RECORD), dtype=np.int64)
+    out[:, 3] = -1
+    for gi, p in enumerate(group_piece):
+        if p < 0:
+            continue
+        off, mul1, iks, ws, _lane = dtp.pieces[p]
+        u0 = gi * _GROUP - lane0[p]
+        if len(iks) > _MAX_TERMS or off + mul1 * (max([i for i, _ in iks], default=0) + 1) >= 1 << 15:
+            raise ValueError(f"tensor-core edge kernels: a piece with {len(iks)} terms or lanes past 2^15")
+        if mul1 % 2 or off % 2 or ws % 2:
+            raise ValueError(f"tensor-core edge kernels: odd multiplicity {mul1} or lane offset {off}")
+        terms = [(i * mul1) << 16 | c for i, c in iks]
+        out[gi, :4] = off + u0, min(_GROUP, mul1 - u0), len(iks), ws + u0 if weighted else -1
+        out[gi, 5:] = (terms + terms[:1] * _MAX_TERMS)[:_MAX_TERMS] if terms else 0
+    if weighted:  # the radial blocks come in order: a chunk reads up to the largest seen so far
+        last = 0
+        for c in range(len(out) // 2):
+            last = max([last] + [int(w) // _W_BLOCK for w in out[2 * c : 2 * c + 2, 3] if w >= 0])
+            out[2 * c : 2 * c + 2, 4] = last
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_tables(plan: EdgePlan, spec: Tuple[Tuple[bool, bool], ...], rad_dims: Tuple[int, ...]) -> np.ndarray:
+    """int32 tables the tensor-core kernels walk: the group records of DTP1
+    and of DTP2; the gate index of every gated lane; the radial layer widths.
+    The kernels compute the radial weights block by block as the chunks
+    advance, so DTP1's pieces must come in the order of their weight starts
+    and none may straddle two blocks."""
+    starts = [ws for _off, _mul1, _iks, ws, _lane in plan.dtp1.pieces]
+    if starts != sorted(starts) or any(ws % _W_BLOCK + mul1 > _W_BLOCK for _, mul1, _, ws, _ in plan.dtp1.pieces):
+        raise ValueError("tensor-core edge kernels: DTP1's pieces must be ordered by weight start and "
+                         f"lie within blocks of {_W_BLOCK} weight columns")
+    if plan.dim_in % 2:
+        raise ValueError(f"tensor-core edge kernels: odd message width {plan.dim_in}")
+    _check_radial(spec)
+    if any(d % 4 for d in rad_dims[1:-1]):
+        raise ValueError(f"tensor-core edge kernels: hidden radial widths must be multiples of 4, got {rad_dims}")
+    g1, g2 = group_records(plan.dtp1, True), group_records(plan.dtp2, False)
+    out = list(g1.reshape(-1)) + list(g2.reshape(-1)) + _gate_index(plan) + list(rad_dims)
     return np.asarray(out, dtype=np.int32)
 
 
 _DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_tables(build, plan, spec, rad_dims, device) -> torch.Tensor:
+    key = (build.__name__, id(plan), spec, rad_dims, device)
+    meta = _DEVICE_TABLES.get(key)
+    if meta is None:
+        meta = _DEVICE_TABLES[key] = torch.as_tensor(build(plan, spec, rad_dims), device=device)
+    return meta
 
 
 def _rad_dims(spec, arrays) -> Tuple[int, ...]:
@@ -346,13 +481,89 @@ def _rad_dims(spec, arrays) -> Tuple[int, ...]:
     return tuple(dims)
 
 
-def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+def _tf32_round(w: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to the nearest value with TF32's 10-bit mantissa."""
+    bits = w.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(w: torch.Tensor):
+    """``(hi, lo)`` with ``hi`` the TF32 rounding of ``w`` and ``lo`` the TF32
+    rounding of the rest: ``hi + lo`` is ``w`` to 2^-22 relative, and both are
+    read exactly by a TF32 tensor-core product."""
+    hi = _tf32_round(w)
+    return hi, _tf32_round(w - hi)
+
+
+def chunk_images(Wt: torch.Tensor, depth_per_16_bytes: int) -> torch.Tensor:
+    """``Wt`` (n, K) with depth K a multiple of 16, cut into chunks of 16 of
+    depth, each in the shared-memory image ``wgmma`` reads (K-major, no
+    swizzle: ``[16 / T][n][T]`` with T elements per 16 bytes).  Returns
+    ``(K / 16, 16 / T, n, T)``."""
+    n, K = Wt.shape
+    T = depth_per_16_bytes
+    return Wt.reshape(n, K // _CHUNK, _CHUNK // T, T).permute(1, 2, 0, 3).contiguous()
+
+
+def _padded_transposed(W: torch.Tensor, lane_src: np.ndarray, n_pad: int) -> torch.Tensor:
+    """``W`` (lanes, n) with its rows moved to their padded lanes, zero rows
+    for padding, zero columns up to ``n_pad``, transposed: (n_pad, K_pad)."""
+    out = W.new_zeros(n_pad, len(lane_src))
+    keep = torch.as_tensor(np.flatnonzero(lane_src >= 0), device=W.device)
+    out[: W.shape[1], keep] = W.t()
+    return out
+
+
+def _tf32_images(Wt: torch.Tensor) -> torch.Tensor:
+    """Chunk images of the TF32 ``hi`` and ``lo`` parts: ``(chunks, 2, 4, n, 4)``."""
+    return torch.stack([chunk_images(part, 4) for part in split_tf32(Wt)], dim=1).contiguous()
+
+
+def mma_operands(plan: EdgePlan, weights, rad) -> Dict[str, torch.Tensor]:
+    """The weight operands of the tensor-core kernels, from
+    :func:`prepare_weights`' tuple (``W_av`` bfloat16 for the mixed kernel)
+    and :func:`pack_radial`'s arrays, on the weights' device:
+
+    * ``W1``: ``W_av`` transposed to (n_pad, K_pad) along :func:`chunk_schedule`
+      (n_pad: the columns padded to a multiple of 32), as chunk images; TF32
+      ``hi`` and ``lo`` parts when float32, one image when bfloat16;
+    * ``W2``: the same for ``W2``, always TF32 ``hi`` and ``lo``;
+    * ``Rw``, ``Rb``: the radial MLP's last layer and its offset, their
+      columns padded to a multiple of 64;
+    * ``radh``: the hidden radial layers, flat.
+
+    Kept on ``weights`` when that is an :class:`EdgeWeights`."""
+    spec, arrays = rad
+    cache = getattr(weights, "_mma", None)
+    key = tuple((id(a), a._version) for a in arrays)  # the radial MLP's tensors, as they stand
+    if cache is not None and key in cache:
+        return cache[key][1]
+    W_av, _, _, W2, _ = weights
+    src1, _, _ = chunk_schedule(plan.dtp1)
+    src2, _, _ = chunk_schedule(plan.dtp2)
+    n_pad1, n_pad2 = -(-W_av.shape[1] // 32) * 32, -(-W2.shape[1] // 32) * 32
+    Wt1 = _padded_transposed(W_av, src1, n_pad1)
+    W_last, off = arrays[-2], arrays[-1].reshape(-1)
+    w_pad = -W_last.shape[1] % _W_BLOCK
+    hidden = arrays[:-2]
+    ops = dict(
+        W1=chunk_images(Wt1, 8) if W_av.dtype == torch.bfloat16 else _tf32_images(Wt1),
+        W2=_tf32_images(_padded_transposed(W2, src2, n_pad2)),
+        Rw=torch.nn.functional.pad(W_last, (0, w_pad)).contiguous(),
+        Rb=torch.nn.functional.pad(off, (0, w_pad)).contiguous(),
+        radh=(torch.cat([a.reshape(-1) for a in hidden]) if hidden else off.new_zeros(1)).contiguous(),
+    )
+    if cache is not None:
+        cache.clear()
+        cache[key] = (list(arrays), ops)  # the tensors are kept, so their ids stay theirs
+    return ops
+
+
+def _check_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     """Check the operands of one launch of the edge segment (device, dtypes,
-    shapes, contiguity; raises on what the kernels do not take) and return
-    ``(mixed, cfg, tensors)``: the int32 config the C launchers read and the
-    tensors ``(x1, attr, es, meta, rad_flat, W_av, b_av, Dmat, W2, b2, C1,
-    C2)`` in the launchers' order.  ``x1``, ``attr`` and ``edge_scalars``
-    are flat (rows, .)."""
+    shapes, contiguity; raises on what the kernels do not take); returns
+    ``(mixed, rad_dims)``.  ``x1``, ``attr`` and ``edge_scalars`` are flat
+    (rows, .)."""
     W_av, b_av, Dmat, W2, b2 = weights
     spec, arrays = rad
     rad_dims = _rad_dims(spec, arrays)
@@ -365,11 +576,7 @@ def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights,
         if not t.is_contiguous():
             raise ValueError(f"{name}: the folded weights must be contiguous (see prepare_weights)")
     rows = x1.shape[0]
-    S = edge_scalars.shape[1]
-    n_comb, attn = W_av.shape[1], W2.shape[1]
     ma, sd, gd, td, H = plan.mul_alpha, plan.sd, plan.gd, plan.td, plan.H
-    numel1 = rad_dims[-1]
-    nA1, nA2 = plan.dtp1.C_all.shape[1], plan.dtp2.C_all.shape[1]
     expect = {
         "x1": (x1.shape, (rows, plan.dim_in)),
         "attr": (attr.shape, (rows, plan.dim_sh)),
@@ -383,31 +590,75 @@ def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights,
     for op, (got, want) in expect.items():
         if tuple(got) != tuple(want):
             raise ValueError(f"{name}: {op} has shape {tuple(got)}, expected {want}")
+    return mixed, rad_dims
+
+
+def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+    """The operands of one launch of the float32 CUDA-core kernel, checked:
+    ``(cfg, tensors)``, the int32 config the C launcher reads and the tensors
+    ``(x1, attr, es, meta, rad_flat, W_av, b_av, Dmat, W2, b2, C1, C2)`` in
+    its order."""
+    mixed, rad_dims = _check_operands(name, plan, x1, attr, edge_scalars, weights, rad)
+    if mixed:
+        raise TypeError(f"{name}: the CUDA-core kernel is float32 only")
+    W_av, b_av, Dmat, W2, b2 = weights
+    spec, arrays = rad
+    n_comb, attn = W_av.shape[1], W2.shape[1]
     if n_comb > _MAX_COLS or attn > _MAX_COLS:
         raise ValueError(f"{name}: product widths {n_comb}, {attn} exceed {_MAX_COLS}")
-    tab = _tables(plan, spec, rad_dims)
-    key = (id(plan), spec, rad_dims, x1.device)
-    meta = _DEVICE_TABLES.get(key)
-    if meta is None:
-        meta = _DEVICE_TABLES[key] = torch.as_tensor(tab, device=x1.device)
+    meta = _device_tables(_tables, plan, spec, rad_dims, x1.device)
     C1, C2, _ = _consts(plan, attr)
     rad_flat = torch.cat([a.reshape(-1) for a in arrays]).contiguous()
     max_hidden = max(rad_dims[1:-1]) if len(rad_dims) > 2 else 0
     cfg = np.asarray(
-        [rows, plan.dim_in, plan.dim_sh, S, numel1, nA1, nA2,
+        [x1.shape[0], plan.dim_in, plan.dim_sh, rad_dims[0], rad_dims[-1], C1.shape[1], C2.shape[1],
          len(plan.dtp1.pieces), sum(len(p[2]) for p in plan.dtp1.pieces),
          len(plan.dtp2.pieces), sum(len(p[2]) for p in plan.dtp2.pieces),
-         n_comb, ma, sd, gd, td, H, attn, len(spec), max_hidden, sd + td],
+         n_comb, plan.mul_alpha, plan.sd, plan.gd, plan.td, plan.H, attn, len(spec), max_hidden, plan.sd + plan.td],
         dtype=np.int32,
     )
     tensors = (x1.contiguous(), attr.contiguous(), edge_scalars.contiguous(), meta, rad_flat,
                W_av, b_av, Dmat, W2, b2, C1, C2)
+    return cfg, tensors
+
+
+def mma_segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+    """The operands of one launch of a tensor-core kernel, checked:
+    ``(mixed, cfg, tensors)``, the int32 config the C launchers read and the
+    tensors ``(x1, attr, es, meta, radh, Rw, Rb, W1, b_av, Dmat, W2 images,
+    b2, C1, C2)`` in their order."""
+    mixed, rad_dims = _check_operands(name, plan, x1, attr, edge_scalars, weights, rad)
+    _, b_av, Dmat, _, b2 = weights
+    spec, _ = rad
+    ops = mma_operands(plan, weights, rad)
+    meta = _device_tables(_mma_tables, plan, spec, rad_dims, x1.device)
+    C1, C2, _ = _consts(plan, attr)
+    cfg = np.asarray(
+        [x1.shape[0], plan.dim_in, plan.dim_sh, rad_dims[0], C1.shape[1], C2.shape[1],
+         ops["W1"].shape[0], ops["W2"].shape[0], b_av.shape[1], plan.mul_alpha, plan.sd, plan.gd, plan.td, plan.H, b2.shape[1], len(spec), rad_dims[-2],
+         max(rad_dims[:-1]), plan.sd + plan.td, ops["Rw"].shape[1]],
+        dtype=np.int32,
+    )
+    tensors = (x1.contiguous(), attr.contiguous(), edge_scalars.contiguous(), meta, ops["radh"], ops["Rw"],
+               ops["Rb"], ops["W1"], b_av, Dmat, ops["W2"], b2, C1, C2)
     return mixed, cfg, tensors
+
+
+def raise_launch_error(name: str, err: int) -> None:
+    """Turn a C launcher's return code into an exception."""
+    if err == _NO_FIT:
+        raise ValueError(f"{name}: no kernel for these widths, or its tile exceeds the shared memory of an SM")
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with cudaError {err}")
 
 
 def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     global launches, launches_bf16
-    mixed, cfg, tensors = segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
+    mixed = x1.dtype == torch.bfloat16
+    if mixed:
+        _, cfg, tensors = mma_segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
+    else:
+        cfg, tensors = segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
     rows, H, attn = x1.shape[0], plan.H, weights[3].shape[1]
     logits = torch.empty(rows, H, dtype=torch.float32, device=x1.device)
     val = torch.empty(rows, attn, dtype=x1.dtype, device=x1.device)
@@ -419,8 +670,7 @@ def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     with torch.cuda.device(x1.device):  # the C launcher uses the current device
         err = fn(cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(),
                  *[t.data_ptr() for t in tensors + (logits, val)], stream)
-    if err != 0:
-        raise RuntimeError(f"edge_kernel: launch failed with cudaError {err}")
+    raise_launch_error("edge_kernel", err)
     if mixed:
         launches_bf16 += 1
     else:

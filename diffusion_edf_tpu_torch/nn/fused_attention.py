@@ -21,7 +21,11 @@ version runs the same radial MLP first.  Everything is float32.
 
 :func:`fused_attention` is the wrapper: on a CPU tensor it runs
 :func:`fused_attention_plain`; on a CUDA tensor it launches the kernel, built
-at first use, or raises.
+at first use, or raises.  The kernel computes only the slots the mask keeps:
+a first small kernel lists the valid slots in order (:func:`compact_plain` is
+its plain version) and the main kernel takes the list in tiles of 64 slots,
+whatever destination rows they belong to (:func:`tile_segments`); both
+products of the segment run on the tensor cores as 3xTF32.
 """
 from __future__ import annotations
 
@@ -33,16 +37,17 @@ import numpy as np
 import torch
 
 from .cuda_build import load_library
-from .edge_kernel import EdgePlan, edge_core_plain, segment_operands
+from .edge_kernel import EdgePlan, edge_core_plain, mma_segment_operands, raise_launch_error
 from .util import constant, sigmoid_norm, silu_norm, smooth_leaky_relu_norm
 
-__all__ = ["fused_attention", "fused_attention_plain", "launches"]
+__all__ = ["fused_attention", "fused_attention_plain", "compact_plain", "tile_segments", "tile_stats", "bind",
+           "launches"]
 
 # Kernel launches since import (or the last reset by a caller); one per
 # launch of the CUDA kernel, none for the plain version.
 launches = 0
 
-_TILE = 32  # slots a block takes through the edge segment at a time
+_TILE = 64  # valid slots a block takes through the edge segment
 _MAX_HEADS = 8  # heads the kernel's softmax state is sized for
 
 
@@ -80,21 +85,66 @@ def fused_attention_plain(
     return (alpha[..., hoc] * val.reshape(nd, nk, -1)).sum(dim=1)
 
 
-@functools.lru_cache(maxsize=None)
-def _library():
-    lib = load_library("fused_attention")
+def compact_plain(mask: torch.Tensor):
+    """The plain version of the kernel's compaction: ``(slots, rowptr)`` with
+    ``slots`` the flat indices of the valid slots of ``mask`` (Nd, K) in
+    order and ``rowptr[n]`` the number of valid slots before destination row
+    ``n`` (``rowptr[Nd]`` is their number)."""
+    flat = mask.reshape(-1)
+    slots = torch.nonzero(flat).reshape(-1).to(torch.int32)
+    rowptr = torch.zeros(mask.shape[0] + 1, dtype=torch.int32, device=mask.device)
+    rowptr[1:] = torch.cumsum(mask.sum(dim=1), dim=0)
+    return slots, rowptr
+
+
+def tile_segments(slots, rowptr, K: int, tile: int = _TILE):
+    """How the kernel cuts the list of valid slots: per tile of ``tile``
+    consecutive entries, its segments ``(destination row, first tile row, end
+    tile row, tiles the row spans, part)``.  A row that spans one tile is
+    written by that tile; else each of its tiles publishes one part, ``part``
+    0 when the row began in an earlier tile and 1 when it begins in this one
+    (None for a row in one tile)."""
+    slots, rowptr = [np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a) for a in (slots, rowptr)]
+    tiles = []
+    for pos0 in range(0, len(slots), tile):
+        rows = slots[pos0 : pos0 + tile] // K
+        segs = []
+        for r, n in enumerate(rows):
+            if r == 0 or n != rows[r - 1]:
+                spans = (rowptr[n + 1] - 1) // tile - rowptr[n] // tile + 1
+                segs.append([int(n), r, r + 1, int(spans), None if spans == 1 else int(rowptr[n] >= pos0)])
+            else:
+                segs[-1][2] = r + 1
+        tiles.append([tuple(s) for s in segs])
+    return tiles
+
+
+def tile_stats(mask: torch.Tensor, tile: int = _TILE):
+    """``(valid slots, tiles that do work, mean fill of those tiles)`` of one call."""
+    valid = int(mask.sum())
+    tiles = -(-valid // tile)
+    return valid, tiles, (valid / (tiles * tile) if tiles else 0.0)
+
+
+def bind(lib):
+    """Declare the C launcher's signature on a loaded library of ``csrc/fused_attention.cu``."""
     fn = lib.fused_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 20)
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 24)
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    return bind(load_library("fused_attention"))
 
 
 def _launch(plan, head_of_col, message, edge_attr, edge_scalars, mask, pre_logit, post_attn, weights, rad):
     global launches
     nd, nk = message.shape[:2]
     dev = message.device
-    mixed, cfg, tensors = segment_operands(
+    mixed, cfg, tensors = mma_segment_operands(
         "fused_attention", plan, message.reshape(nd * nk, -1), edge_attr.reshape(nd * nk, -1),
         edge_scalars.reshape(nd * nk, -1), weights, rad,
     )
@@ -110,29 +160,24 @@ def _launch(plan, head_of_col, message, edge_attr, edge_scalars, mask, pre_logit
         if t is not None and not (t.dtype == torch.float32 and t.device == dev and tuple(t.shape) == (nd, nk)):
             raise ValueError(f"fused_attention: {name} must be a (Nd, K) float32 tensor on the message's device")
     out = torch.empty(nd, plan.attn_dim, dtype=torch.float32, device=dev)
-    # few destination rows: deal the K tiles of a row to several blocks, up to
-    # about four blocks an SM in all (two are resident, so the tail stays short)
-    n_tiles = -(-nk // _TILE)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    nsplit = max(1, min(n_tiles, -(-4 * n_sm // nd)))
-    part = counters = None
-    if nsplit > 1:
-        part = torch.empty(nd * nsplit * (2 * plan.H + plan.attn_dim), dtype=torch.float32, device=dev)
-        counters = torch.zeros(nd, dtype=torch.int32, device=dev)
+    # scratch, all written by the kernels before it is read: the list of valid slots, the
+    # position at which every row starts in it, a counter per row; two parts per tile
+    ints = torch.empty(nd * nk + 2 * nd + 1, dtype=torch.int32, device=dev)
+    slots, rowptr, counters = ints[: nd * nk], ints[nd * nk : nd * nk + nd + 1], ints[nd * nk + nd + 1 :]
+    part = torch.empty(-(-nd * nk // _TILE) * 2 * (2 * plan.H + plan.attn_dim), dtype=torch.float32, device=dev)
     hoc = constant(("head_of_col", head_of_col), lambda: np.asarray(head_of_col), message, dtype=torch.int32)
     x1, attr, es = tensors[:3]
     mask_c = mask.contiguous()
     pre_c = pre_logit.contiguous() if pre_logit is not None else None
     post_c = post_attn.contiguous() if post_attn is not None else None
-    ptrs = (x1, attr, es, mask_c, pre_c, post_c) + tensors[3:] + (hoc, out, part, counters)
+    ptrs = (x1, attr, es, mask_c, pre_c, post_c) + tensors[3:] + (hoc, out, slots, rowptr, counters, part)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):  # the C launcher uses the current device
         err = _library().fused_attention_launch(
-            cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(), nd, nk, nsplit,
+            cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(), nd, nk,
             *[None if t is None else t.data_ptr() for t in ptrs], stream,
         )
-    if err != 0:
-        raise RuntimeError(f"fused_attention: launch failed with cudaError {err}")
+    raise_launch_error("fused_attention", err)
     launches += 1
     return out
 

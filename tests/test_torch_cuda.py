@@ -105,8 +105,8 @@ def _attention_inputs(m, nd, k, S, seed, masked_rows=(0,)):
 @pytest.mark.parametrize("use_pre,use_post", [(True, True), (False, False)])
 @pytest.mark.parametrize("irreps,heads,fc,nd,k", [
     ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),  # one ragged tile
-    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),  # few rows: the K tiles go to several blocks
-    ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 300, 64),  # many rows: one block a row
+    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),  # rows of up to 117 valid slots: each spans tiles
+    ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 300, 64),  # many rows, pieces of 8 lanes
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 5, 4),
 ])
 def test_fused_attention_matches_plain(irreps, heads, fc, nd, k, use_pre, use_post):
@@ -125,6 +125,64 @@ def test_fused_attention_matches_plain(irreps, heads, fc, nd, k, use_pre, use_po
     assert torch.isfinite(out).all()
     assert float(out[0].abs().max()) == 0.0 and float(out[-1].abs().max()) == 0.0  # all-masked rows give exactly 0
     torch.testing.assert_close(out, ref, rtol=0, atol=3e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["all_valid", "all_masked", "one_a_row", "whole_tiles", "straddle"])
+@pytest.mark.parametrize("irreps,heads,fc,nd,k", [
+    ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),
+    ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 70, 50),  # pieces of 8 lanes; K no multiple of 64
+    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),
+])
+def test_fused_attention_mask_patterns(irreps, heads, fc, nd, k, pattern):
+    """Masks that stress the compaction of the valid slots into tiles of 64:
+    every slot, none, one a row, a count that fills its tiles exactly, and
+    rows whose slots lie across tile boundaries (one of them over several
+    tiles).  Rows without a valid slot come out exactly 0."""
+    _need_cuda()
+    m = _ga(irreps, heads, fc)
+    msg, attr, sc, mask, pre, post = _attention_inputs(m, nd, k, fc[0], seed=4)
+    if pattern == "all_valid":
+        mask[:] = True
+    elif pattern == "all_masked":
+        mask[:] = False
+    elif pattern == "one_a_row":
+        mask[:] = False
+        mask[torch.arange(nd), (7 * torch.arange(nd)) % k] = True
+    elif pattern == "whole_tiles":
+        flat = mask.reshape(-1)
+        keep = max(64, int(flat.sum()) // 64 * 64)
+        assert int(flat.sum()) >= keep
+        mask = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
+        assert int(mask.sum()) % 64 == 0
+    else:
+        mask[:] = False
+        mask[:, : min(k, 40)] = True
+        mask[1] = True
+        mask[2] = False
+    hoc = _head_of_col(m.irreps_head, m.H, m.irreps_attn.dim)
+    with torch.no_grad():
+        weights, rad = m._kernel_weights()
+        args = (m.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
+        out = tfa.fused_attention(*args)
+        torch.cuda.synchronize()
+        ref = tfa.fused_attention_plain(*args)
+    assert torch.isfinite(out).all()
+    empty = ~mask.any(dim=1)
+    if bool(empty.any()):
+        assert float(out[empty].abs().max()) == 0.0
+    torch.testing.assert_close(out, ref, rtol=0, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_hold_warpgroup_products():
+    """The built libraries' SASS holds HGMMA: both folded products run on the tensor cores."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import cuda_build
+
+    cuda_build.build_all()
+    for name in cuda_build.SOURCES:
+        assert cuda_build.sass_count(name, "HGMMA") > 0, name
 
 
 @pytest.mark.cuda

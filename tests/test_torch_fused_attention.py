@@ -52,7 +52,7 @@ def _outputs(irreps, heads, fc, K, use_pre, use_post, Nd=12, modes=("pallas_inte
 @pytest.mark.parametrize("K,use_pre,use_post", [(8, True, True), (8, False, False), (11, True, False), (11, False, True)])
 def test_fused_matches_flax_fused_cores(K, use_pre, use_post):
     """K = 11 is no multiple of the Pallas kernel's 8-row blocks nor of the
-    CUDA kernel's 32-slot tiles."""
+    CUDA kernel's 64-slot tiles."""
     out = _outputs(TINY, 2, (8, 16), K, use_pre, use_post)
     for mode in ("pallas_interpret", "xla", "plain"):
         np.testing.assert_allclose(out["fused"], out[mode], atol=2e-5, err_msg=mode)
