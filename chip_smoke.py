@@ -8,19 +8,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
    hand-written CUDA kernels from ``diffusion_edf_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   the paths below give it, with timings of the kernel (CUDA events for the
-   CUDA-core edge kernel; the device time of its kernels for each
-   tensor-core kernel, which must be below the CUDA-core kernel's), of the
-   plain version and of a library yardstick, and its bound:
-   the edge kernel in float32 (max-abs gate 3e-4) and in its mixed bfloat16
-   mode (gates below), and the fused attention kernel (3e-4) on the inputs
-   the model really hands it, with rows whose slots are all masked, and at
-   masks that stress its compaction of the valid slots (all valid, all
-   masked, one slot a row, a count that fills its tiles exactly, rows that
-   straddle tiles); the tensor-core kernels' SASS must hold ``HGMMA``;
+   the paths below give it, with timings of the kernel and of a library
+   yardstick (two matmuls on every row, and for the masked kernels also on
+   as many rows as the mask keeps; the device time of their kernels,
+   ``device_ms``), of the plain
+   version (CUDA events) and the kernel's bound: the edge kernel in float32
+   (max-abs gate 3e-4) on every row of random inputs and, given the mask,
+   on the inputs the model really hands it, the rows the mask drops exactly
+   0; in its mixed bfloat16 mode (gates below); the fused attention kernel
+   (3e-4) on the model's inputs, with rows whose slots are all masked; both
+   masked kernels also at masks that stress their compaction of the valid
+   slots (all valid, all masked, one slot a row, a count that fills its
+   tiles exactly, rows that straddle tiles); each kernel's own function in
+   the SASS must hold ``HGMMA``;
 3. the first path: one ``pick_lowres`` cascade stage of ``agent.sample`` from
    the shipped checkpoint on 32 seeds with the 100-step schedule on the
-   default ``edge_impl`` (the float32 edge kernel), with the launch counters
+   default ``edge_impl`` (the float32 edge kernel, given the edge mask), with the launch counters
    set to 0 before and read after; the same rollout with
    ``edge_impl="plain"`` must land within 2e-2 in final pose; then the p50
    latency of 20-seed requests;
@@ -149,23 +152,30 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10, by_name: bool = False):
     """Device time of one call of ``fn`` in ms: the sum of the durations of
-    the CUDA kernels it launches, from ``torch.profiler`` over ``reps`` calls.
-    Unlike :func:`cuda_ms` it leaves out the host's time between launches,
-    which exceeds a short kernel's own."""
+    the CUDA kernels it launches, from ``torch.profiler`` over ``reps`` calls
+    (``by_name``: a dict of it per kernel name instead).  Unlike
+    :func:`cuda_ms` it leaves out the host's time between launches, which
+    exceeds a short kernel's own."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.name.startswith(("Memcpy", "Memset"))]
-    return sum(e.device_time for e in events) / reps / 1e3
+    for _ in range(3):  # the profiler has come back once without the device's records (H100, torch 2.11)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(("Memcpy", "Memset")):
+                per[e.name] = per.get(e.name, 0.0) + e.device_time / reps / 1e3
+        if sum(per.values()) > 0:
+            return per if by_name else sum(per.values())
+        log("device_ms: the profiler recorded no kernel time; profiling again")
+    raise RuntimeError("device_ms: the profiler recorded no kernel of the call")
 
 
 def scene_clouds(seed: int = 0):
@@ -212,29 +222,34 @@ def segment_work(ga, mixed: bool = False):
     return per_row, 2 * W_av.shape[0] * W_av.shape[1], 2 * W2.shape[0] * W2.shape[1], weight_bytes
 
 
-def edge_work(ga, rows: int, S: int, mixed: bool = False):
+def edge_work(ga, rows: int, S: int, mixed: bool = False, valid=None):
     """(flops, those of them in the first and in the second folded product,
     bytes) of one edge-kernel call: the products this call does and each
     input read once, each output written once.  ``mixed``: the message and
-    ``val`` count 2 bytes an element."""
+    ``val`` count 2 bytes an element.  ``valid``: the rows a mask keeps, the
+    only ones computed and the only ones whose inputs are read; every row's
+    outputs are written, and the mask adds a byte a row."""
     plan = ga.plan
     per_row, p1, p2, weight_bytes = segment_work(ga, mixed)
     wide = 2 if mixed else 4
-    row_bytes = wide * (plan.dim_in + plan.attn_dim) + 4 * (plan.dim_sh + S + plan.H)
-    return per_row * rows, p1 * rows, p2 * rows, row_bytes * rows + weight_bytes
+    in_bytes = wide * plan.dim_in + 4 * (plan.dim_sh + S)
+    out_bytes = wide * plan.attn_dim + 4 * plan.H
+    n = rows if valid is None else valid
+    return per_row * n, p1 * n, p2 * n, in_bytes * n + out_bytes * rows + weight_bytes + (0 if valid is None else rows)
 
 
 def attention_work(ga, nd: int, k: int, S: int, n_valid: int, use_pre: bool, use_post: bool):
     """(flops, those of them in the two folded products, bytes) of one
     fused-attention call: the segment on ``n_valid`` slots plus their softmax
-    and weighted sum; every input read once (masked slots too), the (Nd,
-    attn) output written once.  Neither logits nor val count: they never
-    reach device memory."""
+    and weighted sum; the valid slots' inputs and the whole mask read once,
+    the (Nd, attn) output written once.  Neither logits nor val count: they
+    never reach device memory."""
     plan = ga.plan
     per_row, p1, p2, weight_bytes = segment_work(ga)
     per_row += 4 * plan.H + 2 * plan.attn_dim  # exp / scale per head, weighted sum per lane
-    slot_bytes = 4 * (plan.dim_in + plan.dim_sh + S + int(use_pre) + int(use_post)) + 1
-    return per_row * n_valid, (p1 + p2) * n_valid, slot_bytes * nd * k + weight_bytes + 4 * nd * plan.attn_dim
+    slot_bytes = 4 * (plan.dim_in + plan.dim_sh + S + int(use_pre) + int(use_post))
+    nbytes = slot_bytes * n_valid + nd * k + weight_bytes + 4 * nd * plan.attn_dim
+    return per_row * n_valid, (p1 + p2) * n_valid, nbytes
 
 
 def bound(flops: float, nbytes: float, flops_bf16: float = 0.0, flops_f32_tensor: float = 0.0):
@@ -256,7 +271,30 @@ def library_products_ms(weights, rows: int, g, dev, mixed: bool = False):
     W_av, W2 = weights[0], weights[3]
     Y1 = torch.randn(rows, W_av.shape[0], generator=g, device=dev).to(W_av.dtype)
     Y2 = torch.randn(rows, W2.shape[0], generator=g, device=dev)
-    return cuda_ms(lambda: (torch.matmul(Y1, W_av), torch.matmul(Y2, W2)))
+    return device_ms(lambda: (torch.matmul(Y1, W_av), torch.matmul(Y2, W2)))
+
+
+def stress_masks(mask):
+    """Masks that stress the compaction of the valid slots into tiles of 64,
+    from a (Nd, K) mask of the shape's own fill: all valid, all masked, one
+    slot a row, the first valid slots as many as fill whole tiles, rows that
+    straddle tiles (and one over several)."""
+    import torch
+
+    nd, k = mask.shape
+    dev = mask.device
+    flat = mask.reshape(-1)
+    one = torch.zeros_like(mask)
+    one[torch.arange(nd, device=dev), (7 * torch.arange(nd, device=dev)) % k] = True
+    keep = (int(flat.sum()) // 64) * 64
+    exact = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
+    straddle = torch.zeros_like(mask)
+    straddle[:, : min(k, 40)] = True  # 40 a row: every second row lies across a tile boundary
+    straddle[1] = True  # and one row over several tiles
+    straddle[2] = False
+    return (("all valid", torch.ones_like(mask)), ("all masked", torch.zeros_like(mask)),
+            ("one valid slot a row", one), (f"{keep} valid: whole tiles exactly", exact),
+            ("rows that straddle tiles", straddle))
 
 
 def capture_attention_inputs(ga, run):
@@ -338,19 +376,20 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     log(f"kernel build: {cuda_build.build_all():.1f} s ({', '.join(cuda_build.SOURCES)} in parallel)")
-    for name, out in cuda_build.build_logs.items():
+    for name, out in cuda_build.build_logs.items():  # each kernel's name, then its registers and spills
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "C7515")):
                 log(f"  ptxas {name}: {line.strip()}")
-    # the tensor-core kernels really hold warpgroup products: HGMMA in the built libraries' SASS
-    for name in cuda_build.SOURCES:
-        n_gmma = cuda_build.sass_count(name, "HGMMA")
-        log(f"  SASS of {name}: {n_gmma} HGMMA instructions (cuobjdump -sass)")
+    # every kernel really holds warpgroup products: HGMMA in its own function's SASS
+    for name, fn in (("edge_kernel", "edge_kernel_f32"), ("edge_kernel", "edge_kernel_mixed"),
+                     ("fused_attention", "attention_kernel")):
+        n_gmma = cuda_build.sass_count(name, "HGMMA", fn)
+        log(f"  SASS of {name}, {fn}: {n_gmma} HGMMA instructions (cuobjdump -sass)")
         if n_gmma == 0:
-            log("FAIL: a tensor-core kernel was built without warpgroup products")
+            log(f"FAIL: {fn} was built without warpgroup products")
             return 1
 
-    # ---- phase 2a: K1 against its plain version at the main path's shapes ----
+    # ---- the main path's model, and the inputs its attentions receive ----
     bundle = load_model_bundle(CONFIG, CHECKPOINT, device=dev)
     model = bundle.model
     train_cfg, _, model_cfg = load_configs(CONFIG)
@@ -377,73 +416,6 @@ def main() -> int:
         ("tensor_field_k_cap", tga, N_SEEDS * nQ * K_cap, S_tf),
     ]
     g = torch.Generator(device=dev).manual_seed(0)
-    k1, k2 = {}, {}
-    max_err = k2_err = 0.0
-    with torch.no_grad():
-        for label, ga, rows, S in cases:
-            x1 = torch.randn(rows, ga.plan.dim_in, generator=g, device=dev)
-            vec = torch.randn(rows, 3, generator=g, device=dev)
-            attr = spherical_harmonics("1x0e+1x1e+1x2e", vec, eps=1e-4)
-            es = torch.randn(rows, S, generator=g, device=dev)
-            weights, rad = ga._kernel_weights()
-            kl, kv = ek.edge_kernel(ga.plan, x1, attr, es, weights, rad)
-            torch.cuda.synchronize()
-            pl, pv = ek.edge_core_plain(ga.plan, x1, attr, es, weights, rad)
-            err = max(float((kl - pl).abs().max()), float((kv - pv).abs().max()))
-            ok = err <= KERNEL_GATE and bool(torch.isfinite(kv).all())
-            log(f"K1 {label}: rows {rows} width {ga.plan.dim_in} max_abs_err {err:.3g} (gate {KERNEL_GATE}) "
-                f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                return 1
-            max_err = max(max_err, err)
-            ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, x1, attr, es, weights, rad))
-            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, x1, attr, es, weights, rad))
-            library_ms = library_products_ms(weights, rows, g, dev)
-            flops, _, _, nbytes = edge_work(ga, rows, S)
-            bound_ms, bound_by = bound(flops, nbytes)
-            log(f"K1 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (two matmuls) {library_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB), "
-                f"{flops / ms / 1e9:.1f} TFLOP/s")
-            k1[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-            # ---- phase 2b: the mixed bfloat16 mode at the same shapes ----
-            xb, wb = x1.to(torch.bfloat16), ek.weights_bf16(weights)
-            bl, bv = ek.edge_kernel(ga.plan, xb, attr, es, wb, rad)
-            torch.cuda.synchronize()
-            ql, qv = ek.edge_core_plain(ga.plan, xb, attr, es, wb, rad)
-            err_l = float((bl - ql).abs().max())
-            err_v = float((bv.float() - qv.float()).abs().max()) / float(qv.float().abs().max())
-            off_f32 = float((bv.float() - pv).abs().max()) / float(pv.abs().max())
-            ok = (err_l <= BF16_LOGIT_GATE and err_v <= BF16_VAL_GATE and bl.dtype == torch.float32
-                  and bv.dtype == torch.bfloat16 and bool(torch.isfinite(bv.float()).all()))
-            log(f"K2-bf16 {label}: rows {rows} width {ga.plan.dim_in} logits max_abs_err {err_l:.3g} (gate "
-                f"{BF16_LOGIT_GATE}; max|logits| {float(ql.abs().max()):.3g}), val {err_v:.3g} of max|val| (gate {BF16_VAL_GATE}); val is {off_f32:.3g} of "
-                f"max|val| off the f32 kernel's {'ok' if ok else 'FAIL'}")
-            if not ok:
-                return 1
-            k2_err = max(k2_err, err_l, err_v)
-            ms = device_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
-            event_ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
-            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, xb, attr, es, wb, rad))
-            library_ms = library_products_ms(wb, rows, g, dev, mixed=True)
-            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, mixed=True)
-            # Y1 . W_av against the bf16 peak, Y2 . W2 (3xTF32) against a third of the TF32 peak, the rest
-            # against the CUDA cores' f32 peak
-            bound_ms, bound_by = bound(flops, nbytes, flops_p1, flops_p2)
-            log(f"K2-bf16 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host "
-                f"included; K1 {k1[label]['ms']:.4f}), plain {plain_ms:.4f} ms, library (two matmuls, the first "
-                f"in bf16) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops_p1 / 1e9:.2f} GFLOP "
-                f"at the bf16 peak, {flops_p2 / 1e9:.2f} at a third of the TF32 peak, "
-                f"{(flops - flops_p1 - flops_p2) / 1e9:.2f} at the f32 peak, {nbytes / 1e6:.2f} MB; "
-                f"{bound(flops, nbytes, flops_p1)[0]:.4f} ms with Y2 . W2 at the CUDA cores' f32 peak)")
-            if not ms < k1[label]["ms"]:
-                log("FAIL: the mixed tensor-core kernel is no faster than the float32 CUDA-core kernel")
-                return 1
-            k2[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-            del xb, bl, bv, ql, qv
-            del x1, attr, es, kl, kv, pl, pv
-
-    # ---- phase 2c: K3 against its plain version on the inputs the model hands it ----
     T32 = torch.as_tensor(seed_poses(N_SEEDS), device=dev)
     T32 = torch.cat([T32[:, :4], T32[:, 4:] * 100.0], dim=-1)  # metres -> cm
     time_vec = torch.full((N_SEEDS,), 0.3, device=dev)
@@ -458,25 +430,121 @@ def main() -> int:
                torch.randn(nd_cap, K_cap, S_tf, generator=g, device=dev),
                torch.rand(nd_cap, K_cap, generator=g, device=dev) < 0.9,
                -torch.rand(nd_cap, K_cap, generator=g, device=dev), None)
+    real = dict(tensor_field=real_tf, extractor_pool_0=real_pool, tensor_field_k_cap=cap)
+
+    # ---- phase 2a: K1 against its plain version, on every row and given the path's masks ----
+    k1, k1_all, k2 = {}, {}, {}  # K1 given the path's mask, K1 on every row, K2
+    max_err = k2_err = 0.0
+    with torch.no_grad():
+        for label, ga, rows, S in cases:
+            weights, rad = ga._kernel_weights()
+            library_ms = library_products_ms(weights, rows, g, dev)
+            x1 = torch.randn(rows, ga.plan.dim_in, generator=g, device=dev)
+            vec = torch.randn(rows, 3, generator=g, device=dev)
+            attr = spherical_harmonics("1x0e+1x1e+1x2e", vec, eps=1e-4)
+            es = torch.randn(rows, S, generator=g, device=dev)
+            kl, kv = ek.edge_kernel(ga.plan, x1, attr, es, weights, rad)
+            torch.cuda.synchronize()
+            pl, pv = ek.edge_core_plain(ga.plan, x1, attr, es, weights, rad)
+            err = max(float((kl - pl).abs().max()), float((kv - pv).abs().max()))
+            ok = err <= KERNEL_GATE and bool(torch.isfinite(kv).all())
+            log(f"K1 {label} (every row): rows {rows} width {ga.plan.dim_in} max_abs_err {err:.3g} "
+                f"(gate {KERNEL_GATE}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return 1
+            max_err = max(max_err, err)
+            ms = device_ms(lambda: ek.edge_kernel(ga.plan, x1, attr, es, weights, rad))
+            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, x1, attr, es, weights, rad))
+            # both folded products (3xTF32) against a third of the TF32 peak, the rest against the CUDA cores'
+            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S)
+            bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_p1 + flops_p2)
+            log(f"K1 {label} (every row): kernel {ms:.4f} ms of device time, plain {plain_ms:.4f} ms, library (two "
+                f"matmuls) {library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+                f"{nbytes / 1e6:.2f} MB; {bound(flops, nbytes)[0]:.4f} ms with the products at the CUDA cores' f32 "
+                f"peak); {ms / library_ms:.2f} x the library call, {bound_ms / ms:.3f} of its bound")
+            k1_all[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+            # given the mask, on the inputs the model hands the attention; the dropped rows exactly 0
+            msg, m_attr, m_sc, mask = real[label][:4]
+            if mask.numel() != rows:
+                log(f"FAIL: the model hands {label} {mask.numel()} slots, not {rows}")
+                return 1
+            flat = [a.reshape(rows, -1) for a in (msg, m_attr, m_sc)]
+            for variant, m in (("the path's mask", mask),) + stress_masks(mask):
+                keep = m.reshape(-1)
+                ml, mv = ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep)
+                torch.cuda.synchronize()
+                ql, qv = ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep)
+                err = max(float((ml - ql).abs().max()), float((mv - qv).abs().max()))
+                zeros = float(ml[~keep].abs().sum()) == 0.0 and float(mv[~keep].abs().sum()) == 0.0
+                valid, tiles, fill = fa.tile_stats(m)
+                ok = err <= KERNEL_GATE and zeros and bool(torch.isfinite(mv).all() and torch.isfinite(ml).all())
+                log(f"K1 {label} ({variant}): {valid} of {rows} rows valid, {tiles} tiles of 64 at fill {fill:.3f} "
+                    f"(grid {-(-rows // 64)}), max_abs_err {err:.3g} (gate {KERNEL_GATE}), {rows - valid} dropped "
+                    f"rows exactly 0 {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    return 1
+                max_err = max(max_err, err)
+            keep = mask.reshape(-1)
+            valid, tiles, fill = fa.tile_stats(mask)
+            parts = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep), by_name=True)
+            ms = sum(parts.values())
+            compact_ms = sum(t for n, t in parts.items() if "compact_kernel" in n)
+            # every row dropped: the compaction, then every block writes its range's zeros and leaves
+            empty_ms = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=torch.zeros_like(keep)))
+            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep))
+            # the same two matmuls on as many rows as the mask keeps: the library on the work K1 does
+            library_valid_ms = library_products_ms(weights, valid, g, dev)
+            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, valid=valid)
+            bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_p1 + flops_p2)
+            log(f"K1 {label} (the path's mask): kernel {ms:.4f} ms of device time (compaction included), "
+                f"{valid} valid rows in {tiles} tiles, plain {plain_ms:.4f} ms, library (two matmuls) on every row "
+                f"{library_ms:.4f} ms, on {valid} rows {library_valid_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                f"{bound_by} ({flops / 1e9:.2f} GFLOP on the valid rows, {nbytes / 1e6:.2f} MB); {ms / library_ms:.2f} "
+                f"x the library call on every row, {ms / library_valid_ms:.2f} x on the valid rows, "
+                f"{bound_ms / ms:.3f} of its bound; the compaction {compact_ms:.4f} ms of it; with every row dropped "
+                f"{empty_ms:.4f} ms")
+            k1[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, rows=rows, valid_rows=valid)
+            del msg, m_attr, m_sc, flat, ml, mv, ql, qv
+
+            # ---- phase 2b: the mixed bfloat16 mode at the same shapes, every row ----
+            xb, wb = x1.to(torch.bfloat16), ek.weights_bf16(weights)
+            bl, bv = ek.edge_kernel(ga.plan, xb, attr, es, wb, rad)
+            torch.cuda.synchronize()
+            ql, qv = ek.edge_core_plain(ga.plan, xb, attr, es, wb, rad)
+            err_l = float((bl - ql).abs().max())
+            err_v = float((bv.float() - qv.float()).abs().max()) / float(qv.float().abs().max())
+            off_f32 = float((bv.float() - pv).abs().max()) / float(pv.abs().max())
+            ok = (err_l <= BF16_LOGIT_GATE and err_v <= BF16_VAL_GATE and bl.dtype == torch.float32
+                  and bv.dtype == torch.bfloat16 and bool(torch.isfinite(bv.float()).all()))
+            log(f"K2-bf16 {label}: rows {rows} width {ga.plan.dim_in} logits max_abs_err {err_l:.3g} (gate "
+                f"{BF16_LOGIT_GATE}; max|logits| {float(ql.abs().max()):.3g}), val {err_v:.3g} of max|val| (gate "
+                f"{BF16_VAL_GATE}); val is {off_f32:.3g} of max|val| off the f32 kernel's {'ok' if ok else 'FAIL'}")
+            if not ok:
+                return 1
+            k2_err = max(k2_err, err_l, err_v)
+            ms = device_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
+            event_ms = cuda_ms(lambda: ek.edge_kernel(ga.plan, xb, attr, es, wb, rad))
+            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, xb, attr, es, wb, rad))
+            library_ms = library_products_ms(wb, rows, g, dev, mixed=True)
+            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, mixed=True)
+            # Y1 . W_av against the bf16 peak, Y2 . W2 (3xTF32) against a third of the TF32 peak, the rest
+            # against the CUDA cores' f32 peak
+            bound_ms, bound_by = bound(flops, nbytes, flops_p1, flops_p2)
+            log(f"K2-bf16 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host "
+                f"included), plain {plain_ms:.4f} ms, library (two matmuls, the first in bf16) {library_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms by {bound_by} ({flops_p1 / 1e9:.2f} GFLOP at the bf16 peak, "
+                f"{flops_p2 / 1e9:.2f} at a third of the TF32 peak, {(flops - flops_p1 - flops_p2) / 1e9:.2f} at "
+                f"the f32 peak, {nbytes / 1e6:.2f} MB); {ms / library_ms:.2f} x the library call, "
+                f"{bound_ms / ms:.3f} of its bound, {ms / k1_all[label]['ms']:.2f} x K1 on every row")
+            k2[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            del xb, bl, bv, ql, qv
+            del x1, attr, es, kl, kv, pl, pv
+
+    # ---- phase 2c: K3 against its plain version on the inputs the model hands it ----
     k3 = {}
     k3_err = 0.0
-
-    def stress_masks(mask):
-        """Masks that stress the compaction, from a mask of the shape's own fill."""
-        nd, k = mask.shape
-        flat = mask.reshape(-1)
-        one = torch.zeros_like(mask)
-        one[torch.arange(nd, device=dev), (7 * torch.arange(nd, device=dev)) % k] = True
-        keep = (int(flat.sum()) // 64) * 64  # the first valid slots, as many as fill whole tiles
-        exact = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
-        straddle = torch.zeros_like(mask)
-        straddle[:, : min(k, 40)] = True  # 40 a row: every second row lies across a tile boundary
-        straddle[1] = True  # and one row over several tiles
-        straddle[2] = False
-        return (("all valid", torch.ones_like(mask)), ("all masked", torch.zeros_like(mask)),
-                ("one valid slot a row", one), (f"{keep} valid: whole tiles exactly", exact),
-                ("rows that straddle tiles", straddle))
-
     with torch.no_grad():
         for label, ga, (msg, attr, sc, mask, pre, post) in (
                 ("tensor_field", tga, real_tf), ("extractor_pool_0", pga, real_pool), ("tensor_field_k_cap", tga, cap)):
@@ -511,6 +579,7 @@ def main() -> int:
             event_ms = cuda_ms(lambda: fa.fused_attention(*args))
             plain_ms = cuda_ms(lambda: fa.fused_attention_plain(*args))
             library_ms = library_products_ms(weights, nd * k, g, dev)
+            library_valid_ms = library_products_ms(weights, int(mask.sum()), g, dev)
             kw = dict(edge_pre_attn_logit=pre, edge_post_attn=post)
             impl_ms = {}
             for impl in ("kernel", "fused"):
@@ -524,15 +593,18 @@ def main() -> int:
             bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_tc)
             cuda_core_ms, _ = bound(flops, nbytes)
             log(f"K3 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host included; "
-                f"K1 on every slot {k1[label]['ms']:.4f}), {valid} valid slots in {tiles} tiles at fill {fill:.3f}, "
-                f"plain {plain_ms:.4f} ms, library (two matmuls on every slot) {library_ms:.4f} ms, "
+                f"K1 given the path's mask {k1[label]['ms']:.4f}, on every slot {k1_all[label]['ms']:.4f}), {valid} "
+                f"valid slots in {tiles} tiles at fill {fill:.3f}, "
+                f"plain {plain_ms:.4f} ms, library (two matmuls) on every slot {library_ms:.4f} ms, on {valid} "
+                f"slots {library_valid_ms:.4f} ms, "
                 f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP on the valid slots, {nbytes / 1e6:.2f} "
                 f"MB; {cuda_core_ms:.4f} ms with the products at the CUDA cores' f32 peak); whole GraphAttention: "
                 f"K1 + PyTorch softmax tail {impl_ms['kernel']:.4f} ms, K3 {impl_ms['fused']:.4f} ms")
-            if not ms < k1[label]["ms"]:
-                log("FAIL: the fused attention kernel is no faster than the float32 CUDA-core edge kernel")
-                return 1
-            k3[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+            log(f"K3 {label}: {ms / library_ms:.2f} x the library call on every slot, {ms / library_valid_ms:.2f} x "
+                f"on the valid slots, {bound_ms / ms:.3f} of its bound, {ms / k1[label]['ms']:.2f} x K1 given the "
+                f"path's mask")
+            k3[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
+                             bound_ms=bound_ms, bound_by=bound_by)
     del real_tf, real_pool, cap
 
     # ---- phase 3: the first path, one pick_lowres stage on the default edge_impl ----
@@ -774,7 +846,7 @@ def main() -> int:
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     src = "diffusion_edf_tpu_torch/csrc/"
-    tfk, tf3 = k1["tensor_field"], k3["tensor_field"]
+    tfk, tf3 = k1["tensor_field"], k3["tensor_field"]  # K1 given the tensor field's own mask, as the path runs it
     kernels = [
         dict(name="edge_kernel", route="cuda", source=src + "edge_kernel.cu",
              replaces="diffusion_edf_tpu/nn/edge_kernel.py:477", launches=launches, max_abs_err=max_err, **tfk),

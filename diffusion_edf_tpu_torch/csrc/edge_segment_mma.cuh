@@ -1,13 +1,12 @@
 // The per-edge segment of GraphAttention on Hopper's tensor cores (sm_90a):
-// the second device implementation of the segment, beside edge_segment() of
-// edge_segment.cuh (which stays as the all-f32 CUDA-core version).  It serves
-// the mixed bfloat16 edge kernel (edge_kernel.cu) and the fused attention
-// kernel (fused_attention.cu).
+// the device code of every edge kernel of the port.  It serves the float32
+// edge kernel and the mixed bfloat16 edge kernel (edge_kernel.cu) and the
+// fused attention kernel (fused_attention.cu).
 //
-// Same function as edge_segment() (radial MLP, A1 = attr @ C1, DTP1, merged
-// alpha / value linear, logits, gate, A2, DTP2, value linear), for one tile
-// of 64 edge rows taken through a list of source rows, by a block of four
-// warpgroups (512 threads, at most 128 registers each).  What changed, and why:
+// Per edge row: radial MLP, A1 = attr @ C1, DTP1, merged alpha / value
+// linear, logits, gate, A2, DTP2, value linear; for one tile of 64 edge rows
+// taken through a list of source rows, by a block of four warpgroups (512
+// threads, at most 128 registers each).  How, and why:
 //
 // * Both folded products run on wgmma.  Y1 @ W_av: with BF16, bf16 operands
 //   and f32 accumulation (m64n64k16), which is exactly the mixed mode's
@@ -61,13 +60,14 @@
 // launcher computes the same sums and refuses a launch over 232,448 bytes.
 #pragma once
 
-#include "edge_segment.cuh"
 #include "wgmma.cuh"
 
 namespace edge_mma {
 
-using edge::rbf;
-using edge::sigmoidf_;
+__device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Round to bf16 (nearest even) and hold the result as a float.
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 constexpr int TR = 64;          // rows per tile
 constexpr int NTHREADS = 512;   // four warpgroups
@@ -449,7 +449,7 @@ __device__ __forceinline__ void edge_segment_mma(const Cfg& c, char* smem, const
                                                  const float* __restrict__ es, const Operands& op, float* lg,
                                                  float (&acc2)[NC2 / 2]) {
   const int tid = threadIdx.x, wgi = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2;
   const int row = 16 * warp + g + 8 * (wgi >> 1);  // the tile row whose Y lanes this thread builds
   const Tables tb = split_tables(c, op.meta);
   float* sA = reinterpret_cast<float*>(smem + c.oA);

@@ -21,9 +21,9 @@
 // so the work that counts is a tenth of the slots'.
 //
 // What the design does about it:
-// * Only valid slots are computed.  compact_kernel (one block, no host
-//   synchronisation) takes a prefix sum over the mask and writes the list of
-//   valid slots in order, the position in that list at which every
+// * Only valid slots are computed.  compact_kernel (compact.cuh: one block,
+//   no host synchronisation) takes a prefix sum over the mask and writes the
+//   list of valid slots in order, the position in that list at which every
 //   destination row starts, and zeroes the output and the row counters.
 // * attention_kernel takes 64 consecutive entries of the list as one tile
 //   through edge_segment_mma() (edge_segment_mma.cuh: both products as
@@ -40,6 +40,7 @@
 //   depend on the order of arrival.  Rows without a valid slot keep the 0
 //   that compact_kernel wrote.
 
+#include "compact.cuh"
 #include "edge_segment_mma.cuh"
 
 namespace {
@@ -47,51 +48,7 @@ namespace {
 using namespace edge_mma;
 
 constexpr int MAXH = 8;          // heads the softmax state is sized for
-constexpr int SCAN_THREADS = 1024;
 constexpr int STATIC_BYTES = 4 * (TR + 2 * (TR + 1) + 2 * TR * MAXH + 8);
-
-// slots: the flat indices of the valid slots in order; rowptr[n]: how many
-// valid slots precede destination row n (rowptr[Nd] is their number);
-// counters (Nd) and out (out_n floats) are zeroed.
-__global__ void __launch_bounds__(SCAN_THREADS)
-compact_kernel(const unsigned char* __restrict__ mask, int Nd, int K, int* __restrict__ slots,
-               int* __restrict__ rowptr, int* __restrict__ counters, float* __restrict__ out, int out_n) {
-  __shared__ int warp_sum[SCAN_THREADS / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int N = Nd * K;
-  const int per = (N + SCAN_THREADS - 1) / SCAN_THREADS;
-  const int lo = min(tid * per, N), hi = min(lo + per, N);
-  int cnt = 0;
-  for (int i = lo; i < hi; ++i) cnt += mask[i] != 0;
-  int incl = cnt;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int v = warp_sum[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, v, d);
-      if (lane >= d) v += u;
-    }
-    warp_sum[lane] = v;  // inclusive over warps
-  }
-  __syncthreads();
-  int pos = incl - cnt + (warp ? warp_sum[warp - 1] : 0);
-  int n = lo / K, k = lo - n * K;
-  for (int i = lo; i < hi; ++i) {
-    if (k == 0) rowptr[n] = pos;
-    if (mask[i] != 0) slots[pos++] = i;
-    if (++k == K) k = 0, ++n;
-  }
-  if (tid == 0) rowptr[Nd] = warp_sum[SCAN_THREADS / 32 - 1];
-  for (int i = tid; i < Nd; i += SCAN_THREADS) counters[i] = 0;
-  for (int i = tid; i < out_n; i += SCAN_THREADS) out[i] = 0.f;
-}
 
 template <int NC1, int NC2>
 __global__ void __launch_bounds__(NTHREADS, 1)

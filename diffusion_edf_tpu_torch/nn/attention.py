@@ -11,8 +11,10 @@ the weighted sum and the output projection.
 The per-edge segment has four implementations, chosen by ``edge_impl``:
 
 * ``"plain"``: the module path, one PyTorch op per step;
-* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel` in float32 (on the GPU
-  its CUDA-core kernel), then the masked softmax in PyTorch;
+* ``"kernel"``: :func:`..nn.edge_kernel.edge_kernel` in float32, given the
+  edge mask (on the GPU its tensor-core kernel computes only the slots the
+  mask keeps and returns zeros for the rest), then the masked softmax in
+  PyTorch;
 * ``"kernel_bf16"``: the same wrapper in its selective mixed precision (on
   the GPU its tensor-core kernel): only the message is cast to bfloat16 (and
   ``W_av`` with it); logits come back float32, the value bfloat16 and is
@@ -167,7 +169,7 @@ class GraphAttention(nn.Module):
         scal2 = edge_scalars.reshape(nd * nk, -1)
         if impl == "kernel":
             weights, rad = cached(self, "edge_weights", list(self.parameters()), self._kernel_weights)
-            logits, val = edge_kernel(self.plan, msg2, attr2, scal2, weights, rad)
+            logits, val = edge_kernel(self.plan, msg2, attr2, scal2, weights, rad, mask=edge_mask.reshape(-1))
             log_alpha = logits.reshape(nd, nk, H).transpose(1, 2)
             val = val.reshape(nd, nk, -1)
         elif impl == "kernel_bf16":

@@ -18,7 +18,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
-__all__ = ["SOURCES", "build_all", "load_library", "load_variants", "build_logs", "sass_count"]
+__all__ = ["SOURCES", "build_all", "load_library", "load_variants", "build_logs", "sass_count", "count_in_functions"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -91,10 +91,25 @@ def load_library(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def sass_count(name: str, mnemonic: str) -> int:
+def sass_count(name: str, mnemonic: str, function: str = "") -> int:
     """How many instructions of the built library of ``csrc/<name>.cu`` carry
     ``mnemonic`` in their SASS, by the toolkit's ``cuobjdump`` (raises where
-    the toolkit has none).  ``HGMMA`` is the tensor cores' warpgroup product."""
+    the toolkit has none); only in the functions whose (mangled) name holds
+    ``function``, where given.  ``HGMMA`` is the tensor cores' warpgroup
+    product."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True, text=True, check=True).stdout
-    return sum(mnemonic in line for line in out.splitlines())
+    return count_in_functions(out, mnemonic, function)
+
+
+def count_in_functions(sass: str, mnemonic: str, function: str = "") -> int:
+    """The count of :func:`sass_count` in the text ``cuobjdump -sass`` printed:
+    each function's code follows a line ``Function : <mangled name>``."""
+    n, inside = 0, not function
+    for line in sass.splitlines():
+        head = line.strip()
+        if head.startswith("Function :"):
+            inside = function in head
+        elif inside and mnemonic in line:
+            n += 1
+    return n

@@ -9,9 +9,12 @@ Per edge row the segment computes
     linear) -> value linear
 
 and returns ``logits (rows, H)`` and ``val (rows, attn_dim)``; the masked
-softmax over K stays outside.  It is the counterpart of the JAX package's
-``nn/edge_kernel.py`` (``edge_kernel_call`` with its ``_core``, and
-``_call_transposed`` with its ``_core_t``).
+softmax over K stays outside.  Given a ``mask`` (rows,), the rows it drops
+come back as exact zeros in both (the softmax tail multiplies them by 0, so
+they must not be NaN), and the kernel computes only the rows it keeps.  It
+is the counterpart of the JAX package's ``nn/edge_kernel.py``
+(``edge_kernel_call`` with its ``_core``, and ``_call_transposed`` with its
+``_core_t``).
 
 Two precisions, chosen by the dtypes of the operands and by nothing else:
 
@@ -29,14 +32,15 @@ Any other combination raises.
 :func:`edge_kernel` is the wrapper: on a CPU tensor it runs
 :func:`edge_core_plain`; on a CUDA tensor it launches the kernel, built at
 first use with ``nvcc`` into ``build/`` at the repository root, or raises.
-The float32 kernel runs on the CUDA cores from ``prepare_weights``' matrices
-as they are.  The mixed kernel, and the fused attention kernel of
-``nn/fused_attention.py``, run both folded products on the tensor cores
-(``csrc/edge_segment_mma.cuh``) and read the weights in another form, built
-once per set of weights by :func:`mma_operands`: transposed, split into TF32
-``hi + lo`` parts where the product is float32, padded, and cut into the
-chunks of 16 lanes that the kernel stages through shared memory
-(:func:`chunk_schedule`).
+Both kernels, and the fused attention kernel of ``nn/fused_attention.py``,
+run both folded products on the tensor cores (``csrc/edge_segment_mma.cuh``)
+and read the weights in another form, built once per set of weights by
+:func:`mma_operands`: transposed, split into TF32 ``hi + lo`` parts where
+the product is float32, padded, and cut into the chunks of 16 lanes that the
+kernel stages through shared memory (:func:`chunk_schedule`).  They take the
+widths of the pick models' three instantiations, ``(n_comb, attn)`` padded
+to multiples of 32 as (352, 256), (192, 128) and (64, 32); any other width
+raises ``ValueError``.  The mixed mode takes no mask.
 """
 from __future__ import annotations
 
@@ -68,7 +72,6 @@ __all__ = [
     "mma_operands",
     "edge_core_plain",
     "edge_kernel",
-    "segment_operands",
     "mma_segment_operands",
     "raise_launch_error",
     "bind",
@@ -80,9 +83,6 @@ __all__ = [
 # mixed bfloat16; one per launch of the CUDA kernel, none for the plain version.
 launches = 0
 launches_bf16 = 0
-
-_MAX_PIECE = 64  # widest DTP piece the kernel's piece buffer holds
-_MAX_COLS = 384  # widest product output (12 columns per lane x 32 lanes)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -276,13 +276,24 @@ def _consts(plan: EdgePlan, like: torch.Tensor):
     )
 
 
-def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+def _check_mask(name: str, mask, x1, mixed: bool) -> None:
+    if mask is None:
+        return
+    if mixed:
+        raise ValueError(f"{name}: the mixed bfloat16 mode takes no mask")
+    if not (mask.dtype == torch.bool and mask.device == x1.device and tuple(mask.shape) == (x1.shape[0],)):
+        raise ValueError(f"{name}: mask must be a (rows,) bool tensor on x1's device")
+
+
+def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad, mask=None):
     """The plain PyTorch version of the kernel: the same function, assembled
     from lane slices and dense products.  ``x1`` is i-major (rows, dim_in);
     ``rad = (spec, arrays)`` from :func:`pack_radial`.  In the mixed mode
-    (bfloat16 ``x1`` and ``W_av``) it rounds where the kernel rounds."""
+    (bfloat16 ``x1`` and ``W_av``) it rounds where the kernel rounds.  It
+    computes every row; ``mask`` then zeroes the rows it drops."""
     W_av, b_av, Dmat, W2, b2 = weights
     mixed = _is_mixed(x1, W_av, (attr, edge_scalars, b_av, Dmat, W2, b2) + tuple(rad[1]))
+    _check_mask("edge_core_plain", mask, x1, mixed)
     C1, C2, Rg = _consts(plan, attr)
     w_rad = _radial_fwd(rad[0], edge_scalars, rad[1])
 
@@ -319,14 +330,17 @@ def edge_core_plain(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
             acc = term if acc is None else acc + term
         pieces.append(mid.new_zeros(mid.shape[0], mul1) if acc is None else acc)
     val = torch.cat(pieces, dim=-1) @ W2 + b2
+    if mask is not None:
+        keep = mask[:, None]
+        logits, val = torch.where(keep, logits, 0.0), torch.where(keep, val, 0.0)
     return logits, (val.to(torch.bfloat16) if mixed else val)
 
 
 # --------------------------------------------------------------------------- #
 # CUDA kernels: tables, operands, launch
 # --------------------------------------------------------------------------- #
-_N_PTRS = 15  # pointer arguments of the float32 launcher after cfg and the three norms
-_N_PTRS_MMA = 17  # those of the mixed launcher
+_N_PTRS_F32 = 19  # pointer arguments of the float32 launcher after cfg and the three norms
+_N_PTRS_BF16 = 17  # those of the mixed launcher
 _CHUNK = 16  # Y lanes per staged chunk of the tensor-core kernels
 _GROUP = 8  # lanes that share one piece: every piece is padded to a multiple of it
 _W_BLOCK = 64  # columns of the radial MLP's last layer the tensor-core kernels compute at a time
@@ -335,7 +349,7 @@ _NO_FIT = -1  # the C launchers' code for "no instantiation for these widths, or
 
 def bind(lib):
     """Declare the C launchers' signatures on a loaded library of ``csrc/edge_kernel.cu``."""
-    for fn, n in ((lib.edge_kernel_launch, _N_PTRS), (lib.edge_kernel_bf16_launch, _N_PTRS_MMA)):
+    for fn, n in ((lib.edge_kernel_f32_launch, _N_PTRS_F32), (lib.edge_kernel_bf16_launch, _N_PTRS_BF16)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] + [ctypes.c_float] * 3 + [ctypes.c_void_p] * n
     return lib
@@ -359,24 +373,6 @@ def _gate_index(plan: EdgePlan) -> List[int]:
     R = plan.R_gate_im
     assert np.all(R.sum(axis=0) == 1.0)
     return list(np.argmax(R, axis=0))
-
-
-@functools.lru_cache(maxsize=None)
-def _tables(plan: EdgePlan, spec: Tuple[Tuple[bool, bool], ...], rad_dims: Tuple[int, ...]) -> np.ndarray:
-    """int32 tables the float32 kernel walks: per DTP the pieces ``(off,
-    mul1, term start, term count, weight start, lane)`` and terms ``(i, A
-    col)``; the gate index of every gated lane; the radial layer widths."""
-    out: List[int] = []
-    for dp in (plan.dtp1, plan.dtp2):
-        pieces, terms = [], []
-        for off, mul1, iks, ws, lane in dp.pieces:
-            assert mul1 <= _MAX_PIECE, mul1
-            pieces.append((off, mul1, len(terms), len(iks), ws, lane))
-            terms.extend(iks)
-        out += [v for p in pieces for v in p] + [v for t in terms for v in t]
-    _check_radial(spec)
-    out += _gate_index(plan) + list(rad_dims)
-    return np.asarray(out, dtype=np.int32)
 
 
 def chunk_schedule(dtp: _DtpPlan):
@@ -463,11 +459,11 @@ def _mma_tables(plan: EdgePlan, spec: Tuple[Tuple[bool, bool], ...], rad_dims: T
 _DEVICE_TABLES: Dict[tuple, torch.Tensor] = {}
 
 
-def _device_tables(build, plan, spec, rad_dims, device) -> torch.Tensor:
-    key = (build.__name__, id(plan), spec, rad_dims, device)
+def _device_tables(plan, spec, rad_dims, device) -> torch.Tensor:
+    key = (id(plan), spec, rad_dims, device)
     meta = _DEVICE_TABLES.get(key)
     if meta is None:
-        meta = _DEVICE_TABLES[key] = torch.as_tensor(build(plan, spec, rad_dims), device=device)
+        meta = _DEVICE_TABLES[key] = torch.as_tensor(_mma_tables(plan, spec, rad_dims), device=device)
     return meta
 
 
@@ -593,35 +589,6 @@ def _check_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, 
     return mixed, rad_dims
 
 
-def segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
-    """The operands of one launch of the float32 CUDA-core kernel, checked:
-    ``(cfg, tensors)``, the int32 config the C launcher reads and the tensors
-    ``(x1, attr, es, meta, rad_flat, W_av, b_av, Dmat, W2, b2, C1, C2)`` in
-    its order."""
-    mixed, rad_dims = _check_operands(name, plan, x1, attr, edge_scalars, weights, rad)
-    if mixed:
-        raise TypeError(f"{name}: the CUDA-core kernel is float32 only")
-    W_av, b_av, Dmat, W2, b2 = weights
-    spec, arrays = rad
-    n_comb, attn = W_av.shape[1], W2.shape[1]
-    if n_comb > _MAX_COLS or attn > _MAX_COLS:
-        raise ValueError(f"{name}: product widths {n_comb}, {attn} exceed {_MAX_COLS}")
-    meta = _device_tables(_tables, plan, spec, rad_dims, x1.device)
-    C1, C2, _ = _consts(plan, attr)
-    rad_flat = torch.cat([a.reshape(-1) for a in arrays]).contiguous()
-    max_hidden = max(rad_dims[1:-1]) if len(rad_dims) > 2 else 0
-    cfg = np.asarray(
-        [x1.shape[0], plan.dim_in, plan.dim_sh, rad_dims[0], rad_dims[-1], C1.shape[1], C2.shape[1],
-         len(plan.dtp1.pieces), sum(len(p[2]) for p in plan.dtp1.pieces),
-         len(plan.dtp2.pieces), sum(len(p[2]) for p in plan.dtp2.pieces),
-         n_comb, plan.mul_alpha, plan.sd, plan.gd, plan.td, plan.H, attn, len(spec), max_hidden, plan.sd + plan.td],
-        dtype=np.int32,
-    )
-    tensors = (x1.contiguous(), attr.contiguous(), edge_scalars.contiguous(), meta, rad_flat,
-               W_av, b_av, Dmat, W2, b2, C1, C2)
-    return cfg, tensors
-
-
 def mma_segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     """The operands of one launch of a tensor-core kernel, checked:
     ``(mixed, cfg, tensors)``, the int32 config the C launchers read and the
@@ -631,7 +598,7 @@ def mma_segment_operands(name: str, plan: EdgePlan, x1, attr, edge_scalars, weig
     _, b_av, Dmat, _, b2 = weights
     spec, _ = rad
     ops = mma_operands(plan, weights, rad)
-    meta = _device_tables(_mma_tables, plan, spec, rad_dims, x1.device)
+    meta = _device_tables(plan, spec, rad_dims, x1.device)
     C1, C2, _ = _consts(plan, attr)
     cfg = np.asarray(
         [x1.shape[0], plan.dim_in, plan.dim_sh, rad_dims[0], C1.shape[1], C2.shape[1],
@@ -652,24 +619,30 @@ def raise_launch_error(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: launch failed with cudaError {err}")
 
 
-def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad, mask):
     global launches, launches_bf16
-    mixed = x1.dtype == torch.bfloat16
-    if mixed:
-        _, cfg, tensors = mma_segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
-    else:
-        cfg, tensors = segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
-    rows, H, attn = x1.shape[0], plan.H, weights[3].shape[1]
-    logits = torch.empty(rows, H, dtype=torch.float32, device=x1.device)
-    val = torch.empty(rows, attn, dtype=x1.dtype, device=x1.device)
+    mixed, cfg, tensors = mma_segment_operands("edge_kernel", plan, x1, attr, edge_scalars, weights, rad)
+    _check_mask("edge_kernel", mask, x1, mixed)
+    rows, dev = x1.shape[0], x1.device
+    logits = torch.empty(rows, plan.H, dtype=torch.float32, device=dev)
+    val = torch.empty(rows, weights[3].shape[1], dtype=x1.dtype, device=dev)
     if rows == 0:
         return logits, val
     lib = _library()
-    fn = lib.edge_kernel_bf16_launch if mixed else lib.edge_kernel_launch
-    stream = torch.cuda.current_stream(x1.device).cuda_stream
-    with torch.cuda.device(x1.device):  # the C launcher uses the current device
-        err = fn(cfg.ctypes.data, smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm(),
-                 *[t.data_ptr() for t in tensors + (logits, val)], stream)
+    norms = (smooth_leaky_relu_norm(), silu_norm(), sigmoid_norm())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):  # the C launchers use the current device
+        if mixed:
+            err = lib.edge_kernel_bf16_launch(cfg.ctypes.data, *norms,
+                                              *[t.data_ptr() for t in tensors + (logits, val)], stream)
+        else:
+            # the list of kept rows and the compaction's counts, written by the kernels before they are read
+            scratch = torch.empty(rows + 3, dtype=torch.int32, device=dev) if mask is not None else None
+            mask_c = None if mask is None else mask.contiguous()
+            err = lib.edge_kernel_f32_launch(cfg.ctypes.data, *norms, *[t.data_ptr() for t in tensors[:3]],
+                                             None if mask_c is None else mask_c.data_ptr(),
+                                             *[t.data_ptr() for t in tensors[3:] + (logits, val)],
+                                             None if scratch is None else scratch.data_ptr(), stream)
     raise_launch_error("edge_kernel", err)
     if mixed:
         launches_bf16 += 1
@@ -678,13 +651,16 @@ def _launch(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
     return logits, val
 
 
-def edge_kernel(plan: EdgePlan, x1, attr, edge_scalars, weights, rad):
+def edge_kernel(plan: EdgePlan, x1, attr, edge_scalars, weights, rad, mask=None):
     """``(logits (rows, H), val (rows, attn_dim))`` of the fused edge
     segment.  ``x1`` i-major (rows, dim_in), ``attr`` (rows, dim_sh),
     ``edge_scalars`` (rows, S) feed the in-kernel radial MLP; ``weights``
     come from :func:`prepare_weights` (through :func:`weights_bf16` for a
-    bfloat16 ``x1``), ``rad`` from :func:`pack_radial`.  CPU tensors take
-    :func:`edge_core_plain`; CUDA tensors launch the kernel."""
+    bfloat16 ``x1``), ``rad`` from :func:`pack_radial`.  ``mask`` (rows,)
+    bool or None: the rows it drops come back as exact zeros, and the kernel
+    computes only the rows it keeps (float32 only; the mixed mode raises
+    ``ValueError`` on a mask).  CPU tensors take :func:`edge_core_plain`;
+    CUDA tensors launch the kernel."""
     if x1.is_cuda:
-        return _launch(plan, x1, attr, edge_scalars, weights, rad)
-    return edge_core_plain(plan, x1, attr, edge_scalars, weights, rad)
+        return _launch(plan, x1, attr, edge_scalars, weights, rad, mask)
+    return edge_core_plain(plan, x1, attr, edge_scalars, weights, rad, mask)

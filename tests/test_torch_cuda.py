@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels (the edge kernel in float32 and in its mixed
-bfloat16 mode, and the fused attention kernel) against their plain PyTorch
-versions on the card.  This file imports neither jax nor the JAX package, so
-it runs on a GPU machine without them:
+"""The hand-written CUDA kernels (the edge kernel in float32, unmasked and at
+masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
+attention kernel) against their plain PyTorch versions on the card.  This
+file imports neither jax nor the JAX package, so it runs on a GPU machine
+without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -89,6 +90,87 @@ def test_edge_kernel_bf16_matches_plain(irreps, heads, fc, rows):
     assert float((kv.float() - pv.float()).abs().max()) <= 2e-2 * scale
 
 
+PATTERNS = ["all_valid", "all_masked", "one_a_row", "whole_tiles", "straddle"]
+
+
+def _pattern_mask(mask, pattern):
+    """Masks that stress the compaction of the valid slots into tiles of 64,
+    from a random (Nd, K) mask: every slot, none, one a row, a count that
+    fills its tiles exactly, and rows whose slots lie across tile boundaries
+    (one of them over several tiles)."""
+    nd, k = mask.shape
+    mask = mask.clone()
+    if pattern == "all_valid":
+        mask[:] = True
+    elif pattern == "all_masked":
+        mask[:] = False
+    elif pattern == "one_a_row":
+        mask[:] = False
+        mask[torch.arange(nd), (7 * torch.arange(nd)) % k] = True
+    elif pattern == "whole_tiles":
+        flat = mask.reshape(-1)
+        keep = max(64, int(flat.sum()) // 64 * 64)
+        assert int(flat.sum()) >= keep
+        mask = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
+        assert int(mask.sum()) % 64 == 0
+    else:
+        mask[:] = False
+        mask[:, : min(k, 40)] = True
+        mask[1] = True
+        mask[2] = False
+    return mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", PATTERNS)
+@pytest.mark.parametrize("irreps,heads,fc,nd,k", [
+    ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),
+    ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 70, 50),
+    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),
+])
+def test_edge_kernel_mask_patterns(irreps, heads, fc, nd, k, pattern):
+    """The float32 edge kernel given a mask of the rows to compute (without
+    one: ``test_edge_kernel_matches_plain``): kept rows within 3e-4 of the
+    plain version, dropped rows exactly 0 in logits and val whatever their
+    inputs (NaN here: they are never read), one launch a call."""
+    _need_cuda()
+    m = _ga(irreps, heads, fc)
+    msg, attr, sc, mask, _, _ = _attention_inputs(m, nd, k, fc[0], seed=5)
+    rows = nd * k
+    x1, attr, es = msg.reshape(rows, -1), attr.reshape(rows, -1), sc.reshape(rows, -1)
+    keep = _pattern_mask(mask, pattern).reshape(-1)
+    x1 = torch.where(keep[:, None], x1, torch.full_like(x1, float("nan")))
+    with torch.no_grad():
+        weights, rad = m._kernel_weights()
+        before = tek.launches
+        kl, kv = tek.edge_kernel(m.plan, x1, attr, es, weights, rad, mask=keep)
+        torch.cuda.synchronize()
+        assert tek.launches == before + 1
+        pl, pv = tek.edge_core_plain(m.plan, torch.nan_to_num(x1), attr, es, weights, rad, mask=keep)
+    assert float(kl[~keep].abs().sum()) == 0.0 and float(kv[~keep].abs().sum()) == 0.0
+    torch.testing.assert_close(kl, pl, rtol=0, atol=3e-4)
+    torch.testing.assert_close(kv, pv, rtol=0, atol=3e-4)
+
+
+@pytest.mark.cuda
+def test_edge_kernel_refuses_other_widths():
+    """A width with no instantiation raises, with no fallback."""
+    _need_cuda()
+    m = _ga("16x0e+8x1e+4x2e", 2, (8, 16))
+    rows = 70
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x1 = torch.randn(rows, m.plan.dim_in, generator=g, device="cuda")
+    attr = spherical_harmonics(SH, torch.randn(rows, 3, generator=g, device="cuda"), eps=1e-4)
+    es = torch.randn(rows, 8, generator=g, device="cuda")
+    weights, rad = m._kernel_weights()
+    before = tek.launches
+    with pytest.raises(ValueError):
+        tek.edge_kernel(m.plan, x1, attr, es, weights, rad)
+    with pytest.raises(ValueError):
+        tek.edge_kernel(m.plan, x1, attr, es, weights, rad, mask=torch.ones(rows, dtype=torch.bool, device="cuda"))
+    assert tek.launches == before
+
+
 def _attention_inputs(m, nd, k, S, seed, masked_rows=(0,)):
     g = torch.Generator(device="cuda").manual_seed(seed)
     msg = torch.randn(nd, k, m.plan.dim_in, generator=g, device="cuda")
@@ -128,7 +210,7 @@ def test_fused_attention_matches_plain(irreps, heads, fc, nd, k, use_pre, use_po
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pattern", ["all_valid", "all_masked", "one_a_row", "whole_tiles", "straddle"])
+@pytest.mark.parametrize("pattern", PATTERNS)
 @pytest.mark.parametrize("irreps,heads,fc,nd,k", [
     ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 70, 50),  # pieces of 8 lanes; K no multiple of 64
@@ -142,24 +224,7 @@ def test_fused_attention_mask_patterns(irreps, heads, fc, nd, k, pattern):
     _need_cuda()
     m = _ga(irreps, heads, fc)
     msg, attr, sc, mask, pre, post = _attention_inputs(m, nd, k, fc[0], seed=4)
-    if pattern == "all_valid":
-        mask[:] = True
-    elif pattern == "all_masked":
-        mask[:] = False
-    elif pattern == "one_a_row":
-        mask[:] = False
-        mask[torch.arange(nd), (7 * torch.arange(nd)) % k] = True
-    elif pattern == "whole_tiles":
-        flat = mask.reshape(-1)
-        keep = max(64, int(flat.sum()) // 64 * 64)
-        assert int(flat.sum()) >= keep
-        mask = (flat & (torch.cumsum(flat, 0) <= keep)).reshape(nd, k)
-        assert int(mask.sum()) % 64 == 0
-    else:
-        mask[:] = False
-        mask[:, : min(k, 40)] = True
-        mask[1] = True
-        mask[2] = False
+    mask = _pattern_mask(mask, pattern)
     hoc = _head_of_col(m.irreps_head, m.H, m.irreps_attn.dim)
     with torch.no_grad():
         weights, rad = m._kernel_weights()
@@ -176,13 +241,16 @@ def test_fused_attention_mask_patterns(irreps, heads, fc, nd, k, pattern):
 
 @pytest.mark.cuda
 def test_tensor_core_kernels_hold_warpgroup_products():
-    """The built libraries' SASS holds HGMMA: both folded products run on the tensor cores."""
+    """The built libraries' SASS holds HGMMA in each kernel's own function:
+    both folded products run on the tensor cores, in the float32 edge kernel
+    as in the mixed one and the fused attention kernel."""
     _need_cuda()
     from diffusion_edf_tpu_torch.nn import cuda_build
 
     cuda_build.build_all()
-    for name in cuda_build.SOURCES:
-        assert cuda_build.sass_count(name, "HGMMA") > 0, name
+    for name, fn in (("edge_kernel", "edge_kernel_f32"), ("edge_kernel", "edge_kernel_mixed"),
+                     ("fused_attention", "attention_kernel")):
+        assert cuda_build.sass_count(name, "HGMMA", fn) > 0, (name, fn)
 
 
 @pytest.mark.cuda

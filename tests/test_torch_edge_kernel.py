@@ -1,10 +1,11 @@
 """The fused edge segment: the port's plain core against the JAX package's
-``edge_core_reference`` and its Pallas kernel (interpret mode), and the
-port's ``GraphAttention`` (both ``edge_impl`` values) against the flax module
-on shared parameters, at tiny width to 2e-5; the plain core's mixed bfloat16
-mode against the JAX package's transposed kernel on a bfloat16 message.  The
-CUDA kernel itself is compared with the plain core in ``test_torch_cuda.py``,
-on a machine with a GPU."""
+``edge_core_reference`` and its Pallas kernel (interpret mode), with and
+without a mask of the rows to compute, and the port's ``GraphAttention``
+(both ``edge_impl`` values) against the flax module on shared parameters, at
+tiny width to 2e-5; the plain core's mixed bfloat16 mode against the JAX
+package's transposed kernel on a bfloat16 message.  The CUDA kernel itself
+is compared with the plain core in ``test_torch_cuda.py``, on a machine with
+a GPU."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -93,6 +94,63 @@ def test_plain_core_matches_jax_reference_and_pallas(rows):
     torch.testing.assert_close(v2, val, rtol=0, atol=0)
 
 
+def _row_mask(pattern, rows, group=8, seed=2):
+    """A (rows,) mask of the rows to compute; ``one_a_group``: one row kept in
+    every group of ``group`` consecutive rows (one slot a destination row)."""
+    if pattern == "none_masked":
+        return np.ones(rows, bool)
+    if pattern == "all_masked":
+        return np.zeros(rows, bool)
+    if pattern == "sparse":
+        m = np.random.default_rng(seed).uniform(size=rows) < 0.1
+        m[3] = True
+        return m
+    m = np.zeros(rows, bool)
+    m[(np.arange(0, rows, group) + 5) % rows] = True
+    return m
+
+
+@pytest.mark.parametrize("pattern", ["none_masked", "all_masked", "sparse", "one_a_group"])
+def test_plain_core_mask_matches_jax_at_kept_rows(pattern):
+    """With a mask, the kept rows are the JAX kernel's rows (xla and Pallas
+    interpret mode, 2e-5) and the dropped rows exactly 0 in logits and val;
+    the CPU wrapper is the plain version and counts no launch."""
+    rows = 40
+    m, x1, attr, es = _edge_case(TINY, 2, rows)
+    weights, rad = m._kernel_weights()
+    mask = _row_mask(pattern, rows)
+    with torch.no_grad():
+        logits, val = tek.edge_core_plain(m.plan, t(x1), t(attr), t(es), weights, rad, mask=torch.as_tensor(mask))
+        before = tek.launches
+        l2, v2 = tek.edge_kernel(m.plan, t(x1), t(attr), t(es), weights, rad, mask=torch.as_tensor(mask))
+    assert tek.launches == before
+    torch.testing.assert_close(l2, logits, rtol=0, atol=0)
+    torch.testing.assert_close(v2, val, rtol=0, atol=0)
+    assert logits.shape == (rows, m.H) and val.shape == (rows, m.plan.attn_dim)
+    drop = ~torch.as_tensor(mask)
+    assert float(logits[drop].abs().sum()) == 0.0 and float(val[drop].abs().sum()) == 0.0
+    jplan, jweights, jrad = _jax_operands(m, weights, rad)
+    for kw in (dict(mode="xla"), dict(mode="pallas", interpret=True)):
+        jl, jv = jek.edge_kernel_call(jplan, jnp.asarray(x1), jnp.asarray(attr), jnp.asarray(es), jweights,
+                                      rad=jrad, **kw)
+        np.testing.assert_allclose(np.asarray(jl)[mask], logits.numpy()[mask], atol=2e-5)
+        np.testing.assert_allclose(np.asarray(jv)[mask], val.numpy()[mask], atol=2e-5)
+
+
+def test_mask_checks():
+    """A mask in the mixed bfloat16 mode raises ``ValueError`` (its kernel
+    computes every row); so does a mask of the wrong dtype or shape."""
+    rows = 16
+    m, x1, attr, es = _edge_case(TINY, 2, rows)
+    weights, rad = m._kernel_weights()
+    mask = torch.ones(rows, dtype=torch.bool)
+    with pytest.raises(ValueError, match="mixed"):
+        tek.edge_kernel(m.plan, t(x1).to(torch.bfloat16), t(attr), t(es), tek.weights_bf16(weights), rad, mask=mask)
+    for bad in (mask.to(torch.int32), mask[:-1], mask.reshape(4, 4)):
+        with pytest.raises(ValueError, match="mask"):
+            tek.edge_kernel(m.plan, t(x1), t(attr), t(es), weights, rad, mask=bad)
+
+
 @pytest.mark.parametrize("rows", [37, 256])
 def test_plain_core_bf16_matches_jax_transposed_kernel(rows):
     """Mixed mode (bfloat16 message and ``W_av``) against the JAX transposed
@@ -131,15 +189,30 @@ def test_plain_core_bf16_matches_jax_transposed_kernel(rows):
 @pytest.mark.parametrize("edge_impl", ["plain", "kernel"])
 @pytest.mark.parametrize("component_major", [False, True])
 def test_graph_attention_matches_flax(edge_impl, component_major):
+    """Against the flax module, with one destination row whose slots are all
+    masked (``_ga_inputs``' last): on ``"kernel"`` the edge segment gets the
+    mask and returns zeros for every slot of that row, whose output is then
+    the projection of zeros."""
     m, ref, params = _ga_pair(TINY, 2, component_major)
     m.edge_impl = edge_impl
     msg, attr, sc, mask, pre, post = _ga_inputs(TINY)
+    assert not mask[-1].any()
     msg_j = msg if component_major else msg[..., np.argsort(im_perm(Irreps(TINY)))]
     out_j = ref.apply(params, *map(jnp.asarray, (msg_j, attr, sc, mask)), edge_pre_attn_logit=jnp.asarray(pre),
                       edge_post_attn=jnp.asarray(post))
     with torch.no_grad():
         out_t = m(t(msg), t(attr), t(sc), torch.as_tensor(mask), edge_pre_attn_logit=t(pre), edge_post_attn=t(post))
+        zero = m.proj(torch.zeros(1, m.irreps_attn.dim))
     np.testing.assert_allclose(np.asarray(out_j), out_t.numpy(), atol=2e-5)
+    torch.testing.assert_close(out_t[-1:], zero, rtol=0, atol=1e-6)
+    if edge_impl == "kernel":  # what the segment returns for the all-masked row
+        weights, rad = m._kernel_weights()
+        flat = lambda a: t(a).reshape(-1, a.shape[-1])
+        with torch.no_grad():
+            logits, val = tek.edge_kernel(m.plan, flat(msg), flat(attr), flat(sc), weights, rad,
+                                          mask=torch.as_tensor(mask).reshape(-1))
+        k = mask.shape[1]
+        assert float(logits[-k:].abs().sum()) == 0.0 and float(val[-k:].abs().sum()) == 0.0
 
 
 def test_graph_attention_bf16_matches_flax_bf16():

@@ -256,3 +256,25 @@ def test_plain_attention_on_compacted_input_equals_padded(pattern):
     torch.testing.assert_close(small, full, rtol=0, atol=1e-6)
     empty = ~mask.any(1)
     assert float(full[torch.as_tensor(empty)].abs().sum()) == 0.0
+
+
+def test_sass_count_reads_one_function():
+    """``cuda_build.count_in_functions`` counts an instruction in the functions
+    whose name holds the given part, on text laid out as ``cuobjdump -sass``
+    prints it."""
+    from diffusion_edf_tpu_torch.nn.cuda_build import count_in_functions
+
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_117edge_kernel_mixedILi88ELi64EEEvN8edge_mma3CfgE",
+        "        /*0a10*/                   HGMMA.64x88x16.F32.BF16 R24, gdesc[UR4], R24 ;",
+        "        /*0a20*/                   HGMMA.64x64x8.F32.TF32 R88, gdesc[UR8], R88 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_115edge_kernel_f32ILi88ELi64EEEvN8edge_mma3CfgE",
+        "        /*0b10*/                   HGMMA.64x88x8.F32.TF32 R24, gdesc[UR4], R24 ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_114compact_kernelEPKhiiPiS2_S2_Pfi",
+        "        /*0010*/                   SHFL.UP PT, R3, R2, 0x1, RZ ;",
+    ])
+    assert count_in_functions(sass, "HGMMA") == 3
+    assert count_in_functions(sass, "HGMMA", "edge_kernel_f32") == 1
+    assert count_in_functions(sass, "HGMMA", "edge_kernel_mixed") == 2
+    assert count_in_functions(sass, "HGMMA", "compact_kernel") == 0

@@ -7,12 +7,13 @@ they are, with one phase of the chunk loop left out (``EDGE_MMA_SKIP_BUILD``:
 the building of the Y lanes; ``_SKIP_COPY``: the staging of the weights;
 ``_SKIP_PRODUCTS``: the ``wgmma`` products; ``_SKIP_RADIAL``: the radial MLP's
 last layer), and with all four left out (what remains: the hidden radial
-layers, ``attr @ C``, logits, gate, and the loop's barriers).  Times the mixed
-bfloat16 edge kernel and the fused attention kernel at the tensor field's
-shape (7,488 slots of width 240; all slots valid, and one in ten) by the
-device time of their kernels (``chip_smoke.device_ms``).  What a variant
-saves is the time its phase adds to the tile; the variants' results are wrong
-and are not looked at.  Needs a CUDA device.
+layers, ``attr @ C``, logits, gate, and the loop's barriers).  Times the
+float32 edge kernel (every row, and given a mask that keeps one row in ten),
+the mixed bfloat16 edge kernel and the fused attention kernel (all slots
+valid, and one in ten) at the tensor field's shape (7,488 slots of width
+240) by the device time of their kernels (``chip_smoke.device_ms``).  What a
+variant saves is the time its phase adds to the tile; the variants' results
+are wrong and are not looked at.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -57,16 +58,19 @@ def main() -> int:
         xb = flat[0].to(torch.bfloat16)
         masks = {"all valid": torch.ones(nd, k, dtype=torch.bool, device="cuda"),
                  "a tenth valid": torch.rand(nd, k, generator=g, device="cuda") < 0.1}
+        tenth = masks["a tenth valid"].reshape(-1)
         hoc = _head_of_col(ga.irreps_head, ga.H, ga.irreps_attn.dim)
         for i, defines in enumerate(variants):
             ek._library = lambda lib=ek.bind(libs["edge_kernel"][i]): lib
             fa._library = lambda lib=fa.bind(libs["fused_attention"][i]): lib
+            t1 = cs.device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad))
+            t1m = cs.device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=tenth))
             t2 = cs.device_ms(lambda: ek.edge_kernel(ga.plan, xb, flat[1], flat[2], wb, rad))
             t3 = {label: cs.device_ms(lambda: fa.fused_attention(ga.plan, hoc, msg, attr, sc, m, None, None, weights, rad))
                   for label, m in masks.items()}
             what = "as built" if not defines else "without " + ", ".join(d[len("EDGE_MMA_SKIP_"):].lower() for d in defines)
-            print(f"{what:44s} mixed edge kernel {t2:.4f} ms   fused attention: "
-                  + "   ".join(f"{label} {t:.4f} ms" for label, t in t3.items()), flush=True)
+            print(f"{what:44s} f32 edge kernel {t1:.4f} ms, a tenth valid {t1m:.4f} ms   mixed edge kernel {t2:.4f} ms"
+                  "   fused attention: " + "   ".join(f"{label} {t:.4f} ms" for label, t in t3.items()), flush=True)
     return 0
 
 
