@@ -46,10 +46,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
 6. one score step of ``pick_lowres`` under each ``edge_impl``: wall time,
    device time and kernel count (``step_profile``, which
    ``tools/torch_step_profile.py`` prints in more detail);
+2d. the place models' shapes (run after 2c): the float32 edge kernel given
+   the mask and the fused attention kernel against their plain versions
+   (3e-4, dropped rows and slots exactly 0) on the inputs that the
+   ``place_lowres`` key tensor field (32 seeds x 52 keypoints x K slots) and
+   the keypoint extractor's ``tensor_field`` (52 query points) hand them,
+   with the clouds prepared by the server's ``preprocess.yaml``, and at the
+   stress masks; rows, kept rows, tiles, device time, library yardsticks,
+   bound and the plain version's peak memory;
 7. one pick request at the server's full schedule (400 + 500 steps, 20
    seeds) on the default ``edge_impl`` and on ``"fused"``, each timed once;
-8. one JSON line listing each kernel, then the card line, then the result
-   line ``{"ok": true, "device": {...}}``.
+8. the whole place request: ``place_lowres`` (100 steps), ``place_highres``
+   (100 steps shaped as the server's second stage) and the ``place_ebm``
+   critic from the shipped checkpoints, 32 seeds, on the default
+   ``edge_impl`` and on ``"fused"``, each against ``"plain"`` with the pick
+   request's gates, with the served preprocessing; the keypoints each stage
+   keeps after the bbox crop (none fails), launch counters, the drift per
+   stage and per seed with a witness (a fourth run, plain from seeds moved
+   by 1e-6, and kernel against fused) that shows which side departs, and
+   the place score step's profile;
+9. serving: ``AgentService`` with the pick and place cascades and their
+   critics, warmed up, behind ``run_server`` on a free local port: every
+   endpoint for pick and place, four concurrent place ``/denoise`` requests
+   through one batched dispatch with the edge-kernel launches of one
+   request's Langevin steps, ``sample_batch`` of two requests against two
+   ``sample`` calls, the p50 latency of a served place request and the wall
+   time of four batched requests against four sequential ones;
+10. one JSON line listing each kernel, then the card line, then the result
+   line ``{"ok": true, "device": {...}}``.  A kernel's own keys hold the pick
+   tensor field and the launches of the pick path it was first measured on;
+   ``by_shape`` holds K1's and K3's records at the pick and place key fields
+   and the keypoint field, ``launches_by_path`` the place request's counts.
 
 There is no CPU fallback: without a CUDA device the script exits 1.
 """
@@ -124,6 +151,11 @@ SERVER_REQUEST = dict(  # pick_diffusion_configs of configs/panda_mug/server.yam
     log_t_schedule=True,
 )
 EDGE_IMPLS = ("plain", "kernel", "kernel_bf16", "fused")
+PLACE_MODELS = ("place_lowres", "place_highres", "place_ebm")
+
+
+class SmokeFailure(Exception):
+    """A check failed; ``main`` prints it and exits 1."""
 
 
 def log(msg: str) -> None:
@@ -349,7 +381,254 @@ def unsort(traj: np.ndarray, T0: np.ndarray) -> np.ndarray:
     return order
 
 
+def place_clouds(seed: int = 0):
+    """The place task's clouds (metres): the tabletop scene of
+    :func:`scene_clouds` and, as the grasp, a mug held by the gripper (a
+    4 cm-radius, 10 cm-tall shell 8-18 cm along the gripper's z, inside the
+    place models' keypoint bbox of z 8-100 cm)."""
+    from diffusion_edf_tpu_torch.train.data import PointCloud
+
+    scene, _ = scene_clouds(seed)
+    rng = np.random.default_rng(seed + 100)
+    th, z = rng.uniform(0, 2 * np.pi, 256), rng.uniform(0.085, 0.18, 256)
+    mug = np.c_[0.04 * np.cos(th), 0.04 * np.sin(th), z].astype(np.float32)
+    return scene, PointCloud(mug, rng.uniform(0, 1, (256, 3)).astype(np.float32))
+
+
+def peak_gb(fn):
+    """(result of ``fn()``, the peak device memory it allocated, in GB)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def k1_masked_case(label, ga, captured, g, dev):
+    """K1 given the mask of ``captured`` (the arguments a GraphAttention
+    received) against its plain version, at the path's mask and the stress
+    masks (dropped rows exactly 0); then, at the path's mask, its device time
+    (the compaction apart, and with every row dropped), the plain time and
+    peak memory, the library yardsticks and the bound.  Returns (record, max
+    error)."""
+    import torch
+    from diffusion_edf_tpu_torch.nn import edge_kernel as ek
+    from diffusion_edf_tpu_torch.nn import fused_attention as fa
+
+    msg, attr, sc, mask = captured[:4]
+    rows, S = mask.numel(), sc.shape[-1]
+    weights, rad = ga._kernel_weights()
+    flat = [a.reshape(rows, -1) for a in (msg, attr, sc)]
+    max_err, plain_gb = 0.0, 0.0
+    for variant, m in (("the path's mask", mask),) + stress_masks(mask):
+        keep = m.reshape(-1)
+        kl, kv = ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep)
+        torch.cuda.synchronize()
+        (ql, qv), gb = peak_gb(lambda: ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep))
+        plain_gb = max(plain_gb, gb)
+        err = max(float((kl - ql).abs().max()), float((kv - qv).abs().max()))
+        zeros = float(kl[~keep].abs().sum()) == 0.0 and float(kv[~keep].abs().sum()) == 0.0
+        valid, tiles, fill = fa.tile_stats(m)
+        ok = err <= KERNEL_GATE and zeros and bool(torch.isfinite(kv).all() and torch.isfinite(kl).all())
+        log(f"K1 {label} ({variant}): {valid} of {rows} rows valid, {tiles} tiles of 64 at fill {fill:.3f} (grid "
+            f"{-(-rows // 64)}), max_abs_err {err:.3g} (gate {KERNEL_GATE}), {rows - valid} dropped rows exactly 0 "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"K1 at {label} ({variant}) disagrees with its plain version")
+        max_err = max(max_err, err)
+        del kl, kv, ql, qv
+    keep = mask.reshape(-1)
+    valid, tiles, fill = fa.tile_stats(mask)
+    parts = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep), by_name=True)
+    ms = sum(parts.values())
+    compact_ms = sum(t for n, t in parts.items() if "compact_kernel" in n)
+    # every row dropped: the compaction, then every block writes its range's zeros and leaves
+    empty_ms = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=torch.zeros_like(keep)))
+    plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep), reps=5)
+    # the two matmuls on every row, and on as many rows as the mask keeps: the library on the work K1 does
+    library_ms = library_products_ms(weights, rows, g, dev)
+    library_valid_ms = library_products_ms(weights, valid, g, dev)
+    flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, valid=valid)
+    bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_p1 + flops_p2)
+    log(f"K1 {label} (the path's mask): kernel {ms:.4f} ms of device time (compaction included), {valid} of {rows} "
+        f"rows valid in {tiles} tiles ({tiles / 132:.2f} waves of 132 SMs), plain {plain_ms:.4f} ms (peak "
+        f"{plain_gb:.2f} GB), library (two matmuls) on every row {library_ms:.4f} ms, on {valid} rows "
+        f"{library_valid_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP on the valid "
+        f"rows, {nbytes / 1e6:.2f} MB); {ms / library_ms:.2f} x the library call on every row, "
+        f"{ms / library_valid_ms:.2f} x on the valid rows, {bound_ms / ms:.3f} of its bound; the compaction "
+        f"{compact_ms:.4f} ms of it; with every row dropped {empty_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
+                bound_ms=bound_ms, bound_by=bound_by, rows=rows, valid_rows=valid, tiles=tiles,
+                plain_peak_gb=plain_gb), max_err
+
+
+def k3_case(label, ga, captured, g, dev, k1_ms=None):
+    """K3 on ``captured`` against its plain version (rows without a valid
+    slot exactly 0) at the path's mask with its pre-attention logits and
+    post-attention weights as given, with neither and with both, and at the
+    stress masks; then its device time, the plain time and peak memory, the
+    library yardsticks, the bound and the whole GraphAttention on K1 and on
+    K3 (``k1_ms``: K1's time at this mask, for the ratio).  Returns (record,
+    max error)."""
+    import torch
+    from diffusion_edf_tpu_torch.nn import fused_attention as fa
+    from diffusion_edf_tpu_torch.nn.attention import _head_of_col
+
+    msg, attr, sc, mask, pre, post = captured
+    nd, k = mask.shape
+    weights, rad = ga._kernel_weights()
+    hoc = _head_of_col(ga.irreps_head, ga.H, ga.irreps_attn.dim)
+    synth_post = torch.rand(nd, k, generator=g, device=dev)
+    variants = [(f"the path's mask, {v}", mask, p, q) for v, p, q in (
+        ("as given", pre, post), ("no pre, no post", None, None),
+        ("pre and post", pre if pre is not None else -synth_post, synth_post))]
+    variants += [(v, m, pre, post) for v, m in stress_masks(mask)]
+    max_err, plain_gb = 0.0, 0.0
+    for variant, m, p, q in variants:
+        args = (ga.plan, hoc, msg, attr, sc, m, p, q, weights, rad)
+        out = fa.fused_attention(*args)
+        torch.cuda.synchronize()
+        ref, gb = peak_gb(lambda: fa.fused_attention_plain(*args))
+        plain_gb = max(plain_gb, gb)
+        err = float((out - ref).abs().max())
+        empty = ~m.any(dim=1)
+        valid, tiles, fill = fa.tile_stats(m)
+        ok = (err <= KERNEL_GATE and bool(torch.isfinite(out).all())
+              and (not bool(empty.any()) or float(out[empty].abs().max()) == 0.0))
+        log(f"K3 {label} ({variant}): Nd {nd} K {k} width {ga.plan.dim_in}, {valid} of {nd * k} slots valid, {tiles} "
+            f"tiles of 64 at fill {fill:.3f} (grid {-(-nd * k // 64)}), max_abs_err {err:.3g} (gate {KERNEL_GATE}), "
+            f"{int(empty.sum())} all-masked rows exactly 0 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SmokeFailure(f"K3 at {label} ({variant}) disagrees with its plain version")
+        max_err = max(max_err, err)
+        del out, ref
+    args = (ga.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
+    valid, tiles, fill = fa.tile_stats(mask)
+    ms = device_ms(lambda: fa.fused_attention(*args))
+    plain_ms = cuda_ms(lambda: fa.fused_attention_plain(*args), reps=5)
+    library_ms = library_products_ms(weights, nd * k, g, dev)
+    library_valid_ms = library_products_ms(weights, valid, g, dev)
+    kw = dict(edge_pre_attn_logit=pre, edge_post_attn=post)
+    impl_ms = {}
+    for impl in ("kernel", "fused"):
+        ga.edge_impl = impl
+        impl_ms[impl] = cuda_ms(lambda: ga(msg, attr, sc, mask, **kw))
+    ga.edge_impl = None
+    # the work this mask needs, which is what the kernel computes; its two folded products (3xTF32) against a
+    # third of the TF32 peak, the rest against the CUDA cores' f32 peak
+    flops, flops_tc, nbytes = attention_work(ga, nd, k, sc.shape[-1], valid, pre is not None, post is not None)
+    bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_tc)
+    log(f"K3 {label}: kernel {ms:.4f} ms of device time, {valid} valid slots in {tiles} tiles ({tiles / 132:.2f} "
+        f"waves), plain {plain_ms:.4f} ms (peak {plain_gb:.2f} GB), library (two matmuls) on every slot "
+        f"{library_ms:.4f} ms, on {valid} slots {library_valid_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP on the valid slots, {nbytes / 1e6:.2f} MB); {ms / library_ms:.2f} x the library "
+        f"on every slot, {ms / library_valid_ms:.2f} x on the valid slots, {bound_ms / ms:.3f} of its bound"
+        + (f", {ms / k1_ms:.2f} x K1 given the mask" if k1_ms else "")
+        + f"; whole GraphAttention: K1 + PyTorch softmax tail {impl_ms['kernel']:.4f} ms, K3 {impl_ms['fused']:.4f} ms "
+        "(CUDA events, host included)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
+                bound_ms=bound_ms, bound_by=bound_by, rows=nd * k, valid_rows=valid, tiles=tiles,
+                plain_peak_gb=plain_gb), max_err
+
+
+def check_request(label, traj, info, n_total, n_seeds):
+    """Finite unit-quaternion poses of the expected shape, energies ascending."""
+    e, final = info["energy"], traj[-1]
+    if not (np.isfinite(traj).all() and np.isfinite(e).all() and traj.shape == (n_total + 2, n_seeds, 7)
+            and e.shape == (n_seeds,) and np.all(np.diff(e) >= 0)
+            and np.allclose(np.linalg.norm(final[:, :4], axis=-1), 1.0, atol=1e-4)):
+        raise SmokeFailure(f"{label}: poses or energies not finite, of the wrong shape, unsorted, or with non-unit "
+                           "quaternions")
+
+
+def request_drift(label, traj_a, info_a, traj_b, info_b, T0):
+    """The pick request's gates between two runs of one request (same seeds,
+    same noise): final-pose drift, energy drift per seed, top-5 order."""
+    oa, ob = unsort(traj_a, T0), unsort(traj_b, T0)
+    per_seed = np.abs(traj_a[-1][oa] - traj_b[-1][ob]).max(axis=-1)
+    pose_drift = float(per_seed.max())
+    ea, eb = info_a["energy"][oa], info_b["energy"][ob]  # energies in the order of the seeds
+    e_drift = float(np.abs(ea - eb).max())
+    top_a, top_b = ([int(np.flatnonzero(o == c)[0]) for c in range(5)] for o in (oa, ob))
+    same_top = all(a == b or abs(eb[a] - eb[b]) <= ENERGY_GATE for a, b in zip(top_a, top_b))
+    log(f"{label}: final-pose drift {pose_drift:.3g} (gate {POSE_GATE}; median per seed {np.median(per_seed):.3g}, "
+        f"seeds over 1e-3: {int((per_seed > 1e-3).sum())}), energy drift per seed {e_drift:.3g} (gate "
+        f"{ENERGY_GATE}), top-5 seeds {top_a} vs {top_b}")
+    if not (pose_drift <= POSE_GATE and e_drift <= ENERGY_GATE and same_top):
+        raise SmokeFailure(f"{label}: the requests drift apart")
+    return pose_drift, e_drift
+
+
+def place_drift_witness(runs, T0, ends):
+    """Where the place request's drift arises: the per-seed final-pose drift
+    after each stage (``ends``: the trajectory index of each stage's last
+    pose) for kernel, fused and plain against each other and for two plain
+    runs whose seed translations differ by 1e-6 of themselves, then the seeds
+    that drift over 1e-3 in any pair.  If a seed drifts as far between the two plain
+    runs as between a kernel and plain, the rollout amplifies any float32
+    rounding on it and neither side departs; a kernel fault shows as drift
+    that the plain pair lacks."""
+    pairs = (("kernel vs plain", None, "plain"), ("fused vs plain", "fused", "plain"),
+             ("kernel vs fused", None, "fused"),
+             ("plain vs plain, seeds moved 1e-6", "plain", "plain, seeds moved 1e-6"))
+    per = {}
+    for name, a, b in pairs:
+        ta, tb = runs[a][0], runs[b][0]
+        oa, ob = unsort(ta, T0), unsort(tb, T0)
+        per[name] = np.stack([np.abs(ta[e][oa] - tb[e][ob]).max(-1) for e in ends], 1)  # (seeds, stages)
+        log(f"place drift witness, {name}: per stage (lowres, highres) max "
+            f"{[float(f'{x:.3g}') for x in per[name].max(0)]}, median "
+            f"{[float(f'{x:.3g}') for x in np.median(per[name], 0)]}, seeds over 1e-3 "
+            f"{[int(x) for x in (per[name] > 1e-3).sum(0)]}")
+    drifting = np.flatnonzero(np.any([p[:, -1] > 1e-3 for p in per.values()], axis=0))
+    for s in drifting:
+        log(f"place drift witness, seed {s} (lowres, highres): "
+            + "; ".join(f"{name} {[float(f'{x:.3g}') for x in per[name][s]]}" for name, _, _ in pairs))
+    return per
+
+
+def http(url, payload=None, timeout=600):
+    """GET (no payload) or POST JSON to ``url``; (status, decoded JSON)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def wire_request(task, scene, grasp, Ts):
+    """A ``/denoise`` payload: clouds and seed poses in metres."""
+    return {"task_type": task, "Ts_init": np.asarray(Ts).tolist(),
+            "scene": {"points": scene.points.tolist(), "colors": scene.colors.tolist()},
+            "grasp": {"points": grasp.points.tolist(), "colors": grasp.colors.tolist()}}
+
+
+def check_wire_trajectory(label, traj, n_steps, n_seeds):
+    traj = np.asarray(traj)
+    if not (traj.shape == (n_steps, n_seeds, 7) and np.isfinite(traj).all()
+            and np.allclose(np.linalg.norm(traj[-1, :, :4], axis=-1), 1.0, atol=1e-4)
+            and np.abs(traj[-1, :, 4:]).max() < 2.0):
+        raise SmokeFailure(f"{label}: trajectories of shape {traj.shape}, not finite, not unit quaternions or not "
+                           "in metres")
+
+
 def main() -> int:
+    try:
+        return run()
+    except SmokeFailure as e:
+        log(f"FAIL: {e}")
+        return 1
+
+
+def run() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -360,7 +639,6 @@ def main() -> int:
     from diffusion_edf_tpu_torch.nn import attention, cuda_build
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
-    from diffusion_edf_tpu_torch.nn.attention import _head_of_col
     from diffusion_edf_tpu_torch.train.data import pad_pointcloud
     from diffusion_edf_tpu_torch.train.trainer import load_configs
 
@@ -465,48 +743,10 @@ def main() -> int:
             k1_all[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
 
             # given the mask, on the inputs the model hands the attention; the dropped rows exactly 0
-            msg, m_attr, m_sc, mask = real[label][:4]
-            if mask.numel() != rows:
-                log(f"FAIL: the model hands {label} {mask.numel()} slots, not {rows}")
-                return 1
-            flat = [a.reshape(rows, -1) for a in (msg, m_attr, m_sc)]
-            for variant, m in (("the path's mask", mask),) + stress_masks(mask):
-                keep = m.reshape(-1)
-                ml, mv = ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep)
-                torch.cuda.synchronize()
-                ql, qv = ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep)
-                err = max(float((ml - ql).abs().max()), float((mv - qv).abs().max()))
-                zeros = float(ml[~keep].abs().sum()) == 0.0 and float(mv[~keep].abs().sum()) == 0.0
-                valid, tiles, fill = fa.tile_stats(m)
-                ok = err <= KERNEL_GATE and zeros and bool(torch.isfinite(mv).all() and torch.isfinite(ml).all())
-                log(f"K1 {label} ({variant}): {valid} of {rows} rows valid, {tiles} tiles of 64 at fill {fill:.3f} "
-                    f"(grid {-(-rows // 64)}), max_abs_err {err:.3g} (gate {KERNEL_GATE}), {rows - valid} dropped "
-                    f"rows exactly 0 {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    return 1
-                max_err = max(max_err, err)
-            keep = mask.reshape(-1)
-            valid, tiles, fill = fa.tile_stats(mask)
-            parts = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=keep), by_name=True)
-            ms = sum(parts.values())
-            compact_ms = sum(t for n, t in parts.items() if "compact_kernel" in n)
-            # every row dropped: the compaction, then every block writes its range's zeros and leaves
-            empty_ms = device_ms(lambda: ek.edge_kernel(ga.plan, *flat, weights, rad, mask=torch.zeros_like(keep)))
-            plain_ms = cuda_ms(lambda: ek.edge_core_plain(ga.plan, *flat, weights, rad, mask=keep))
-            # the same two matmuls on as many rows as the mask keeps: the library on the work K1 does
-            library_valid_ms = library_products_ms(weights, valid, g, dev)
-            flops, flops_p1, flops_p2, nbytes = edge_work(ga, rows, S, valid=valid)
-            bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_p1 + flops_p2)
-            log(f"K1 {label} (the path's mask): kernel {ms:.4f} ms of device time (compaction included), "
-                f"{valid} valid rows in {tiles} tiles, plain {plain_ms:.4f} ms, library (two matmuls) on every row "
-                f"{library_ms:.4f} ms, on {valid} rows {library_valid_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                f"{bound_by} ({flops / 1e9:.2f} GFLOP on the valid rows, {nbytes / 1e6:.2f} MB); {ms / library_ms:.2f} "
-                f"x the library call on every row, {ms / library_valid_ms:.2f} x on the valid rows, "
-                f"{bound_ms / ms:.3f} of its bound; the compaction {compact_ms:.4f} ms of it; with every row dropped "
-                f"{empty_ms:.4f} ms")
-            k1[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, rows=rows, valid_rows=valid)
-            del msg, m_attr, m_sc, flat, ml, mv, ql, qv
+            if real[label][3].numel() != rows:
+                raise SmokeFailure(f"the model hands {label} {real[label][3].numel()} slots, not {rows}")
+            k1[label], err = k1_masked_case(label, ga, real[label], g, dev)
+            max_err = max(max_err, err)
 
             # ---- phase 2b: the mixed bfloat16 mode at the same shapes, every row ----
             xb, wb = x1.to(torch.bfloat16), ek.weights_bf16(weights)
@@ -546,66 +786,45 @@ def main() -> int:
     k3 = {}
     k3_err = 0.0
     with torch.no_grad():
-        for label, ga, (msg, attr, sc, mask, pre, post) in (
-                ("tensor_field", tga, real_tf), ("extractor_pool_0", pga, real_pool), ("tensor_field_k_cap", tga, cap)):
-            nd, k = mask.shape
+        for label, ga in (("tensor_field", tga), ("extractor_pool_0", pga), ("tensor_field_k_cap", tga)):
+            msg, attr, sc, mask, pre, post = real[label]
             mask = mask.clone()
-            mask[0] = mask[nd // 2] = False  # rows with every slot masked
-            synth_post = torch.rand(nd, k, generator=g, device=dev)
-            weights, rad = ga._kernel_weights()
-            hoc = _head_of_col(ga.irreps_head, ga.H, ga.irreps_attn.dim)
-            variants = [(f"the path's mask, {v}", mask, p, q) for v, p, q in (
-                ("as given", pre, post), ("no pre, no post", None, None),
-                ("pre and post", pre if pre is not None else -synth_post, synth_post))]
-            variants += [(v, m, pre, post) for v, m in stress_masks(mask)]
-            for variant, m, p, q in variants:
-                args = (ga.plan, hoc, msg, attr, sc, m, p, q, weights, rad)
-                out = fa.fused_attention(*args)
-                torch.cuda.synchronize()
-                ref = fa.fused_attention_plain(*args)
-                err = float((out - ref).abs().max())
-                empty = ~m.any(dim=1)
-                valid, tiles, fill = fa.tile_stats(m)
-                ok = (err <= KERNEL_GATE and bool(torch.isfinite(out).all())
-                      and (not bool(empty.any()) or float(out[empty].abs().max()) == 0.0))
-                log(f"K3 {label} ({variant}): Nd {nd} K {k} width {ga.plan.dim_in}, {valid} of {nd * k} slots "
-                    f"valid, {tiles} tiles of 64 at fill {fill:.3f} (grid {-(-nd * k // 64)}), max_abs_err {err:.3g} "
-                    f"(gate {KERNEL_GATE}), {int(empty.sum())} all-masked rows exactly 0 {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    return 1
-                k3_err = max(k3_err, err)
-            args = (ga.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
-            ms = device_ms(lambda: fa.fused_attention(*args))
-            event_ms = cuda_ms(lambda: fa.fused_attention(*args))
-            plain_ms = cuda_ms(lambda: fa.fused_attention_plain(*args))
-            library_ms = library_products_ms(weights, nd * k, g, dev)
-            library_valid_ms = library_products_ms(weights, int(mask.sum()), g, dev)
-            kw = dict(edge_pre_attn_logit=pre, edge_post_attn=post)
-            impl_ms = {}
-            for impl in ("kernel", "fused"):
-                ga.edge_impl = impl
-                impl_ms[impl] = cuda_ms(lambda: ga(msg, attr, sc, mask, **kw))
-            ga.edge_impl = None
-            # bound_ms counts what this mask needs, which is what the kernel computes; its two folded
-            # products (3xTF32) against a third of the TF32 peak, the rest against the CUDA cores' f32 peak
-            valid, tiles, fill = fa.tile_stats(mask)
-            flops, flops_tc, nbytes = attention_work(ga, nd, k, sc.shape[-1], valid, pre is not None, post is not None)
-            bound_ms, bound_by = bound(flops, nbytes, 0.0, flops_tc)
-            cuda_core_ms, _ = bound(flops, nbytes)
-            log(f"K3 {label}: kernel {ms:.4f} ms of device time ({event_ms:.4f} ms between events, host included; "
-                f"K1 given the path's mask {k1[label]['ms']:.4f}, on every slot {k1_all[label]['ms']:.4f}), {valid} "
-                f"valid slots in {tiles} tiles at fill {fill:.3f}, "
-                f"plain {plain_ms:.4f} ms, library (two matmuls) on every slot {library_ms:.4f} ms, on {valid} "
-                f"slots {library_valid_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP on the valid slots, {nbytes / 1e6:.2f} "
-                f"MB; {cuda_core_ms:.4f} ms with the products at the CUDA cores' f32 peak); whole GraphAttention: "
-                f"K1 + PyTorch softmax tail {impl_ms['kernel']:.4f} ms, K3 {impl_ms['fused']:.4f} ms")
-            log(f"K3 {label}: {ms / library_ms:.2f} x the library call on every slot, {ms / library_valid_ms:.2f} x "
-                f"on the valid slots, {bound_ms / ms:.3f} of its bound, {ms / k1[label]['ms']:.2f} x K1 given the "
-                f"path's mask")
-            k3[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_valid_rows_ms=library_valid_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-    del real_tf, real_pool, cap
+            mask[0] = mask[mask.shape[0] // 2] = False  # rows with every slot masked
+            k3[label], err = k3_case(label, ga, (msg, attr, sc, mask, pre, post), g, dev, k1[label]["ms"])
+            k3_err = max(k3_err, err)
+    del real, real_tf, real_pool, cap
+
+    # ---- phase 2d: K1 (given the mask) and K3 at the place models' shapes ----
+    import yaml
+
+    with open(os.path.join(CONFIGS, "preprocess.yaml")) as f:  # the server's preprocessing: no jitter
+        serve_pre = yaml.safe_load(f)
+    pre_unpre = (serve_pre["preprocess_config"], serve_pre["unprocess_config"])
+    place = {n: load_model_bundle(os.path.join(CONFIGS, n), os.path.join(CHECKPOINTS, n + ".npz"), device=dev)
+             for n in PLACE_MODELS}
+    pscene, pgrasp = place_clouds()
+    pscene_p, pgrasp_p = DiffusionEdfAgent([], *pre_unpre)._prep(pscene, pgrasp)  # as the place request sees them
+    pl_model = place["place_lowres"].model
+    with torch.no_grad():
+        pkey = pl_model.get_key_pcd_multiscale(pad_pointcloud(pscene_p, place["place_lowres"].n_scene_pad, dev))
+        pquery = pl_model.get_query_pcd(pad_pointcloud(pgrasp_p, place["place_lowres"].n_grasp_pad, dev))
+        ptga = pl_model.score_head.key_tensor_field.gnn_block_init.ga
+        kpga = pl_model.query_model.tensor_field.gnn_block_init.ga
+        place_inputs = (
+            ("place_tensor_field", ptga, capture_attention_inputs(
+                ptga, lambda: pl_model.score(T32, pkey, pquery, time_vec))),
+            ("keypoint_tensor_field", kpga, capture_attention_inputs(
+                kpga, lambda: pl_model.get_query_pcd(pad_pointcloud(pgrasp_p, place["place_lowres"].n_grasp_pad, dev)))),
+        )
+        log(f"place_lowres: {int(pquery.mask.sum())} of {pquery.n} keypoints kept after the bbox crop; grasp cloud "
+            f"{pgrasp_p.n} points after voxelisation; the key field's {place_inputs[0][2][3].numel()} edge rows "
+            f"({N_SEEDS} seeds x {pquery.n} keypoints x K {place_inputs[0][2][3].shape[1]})")
+        for label, ga, captured in place_inputs:
+            k1[label], err = k1_masked_case(label, ga, captured, g, dev)
+            max_err = max(max_err, err)
+            k3[label], err = k3_case(label, ga, captured, g, dev, k1[label]["ms"])
+            k3_err = max(k3_err, err)
+    del place_inputs
 
     # ---- phase 3: the first path, one pick_lowres stage on the default edge_impl ----
     Ts_init = seed_poses(N_SEEDS)
@@ -689,13 +908,8 @@ def main() -> int:
     if count4["fused_attention"] != expected or count4["edge_kernel"] != 0 or count4["edge_kernel_bf16"] != 0:
         log("FAIL: the pick request did not run through the fused attention kernel alone")
         return 1
-    e_f = info_f["energy"]
-    final_f = traj_f[-1]
-    if not (np.isfinite(traj_f).all() and np.isfinite(e_f).all() and traj_f.shape == (n_total + 2, N_SEEDS, 7)
-            and e_f.shape == (N_SEEDS,) and np.all(np.diff(e_f) >= 0)
-            and np.allclose(np.linalg.norm(final_f[:, :4], axis=-1), 1.0, atol=1e-4)):
-        log("FAIL: poses or energies not finite, of the wrong shape, unsorted, or with non-unit quaternions")
-        return 1
+    check_request("pick request (fused)", traj_f, info_f, n_total, N_SEEDS)
+    e_f, final_f = info_f["energy"], traj_f[-1]
     with torch.no_grad():  # the energies are the critic's energies of the returned final poses
         cm = critic.model
         ckey = cm.get_key_pcd_multiscale(pad_pointcloud(scene_p, critic.n_scene_pad, dev))
@@ -712,19 +926,9 @@ def main() -> int:
     traj_q, _, _, info_q = pick_agent().sample(scene, grasp, Ts_init, generator=gen(1), **PICK_REQUEST)
     set_impl(None)
     T0 = np.concatenate([Ts_init[:, :4], Ts_init[:, 4:] * np.float32(100.0)], axis=-1)
-    of, oq = unsort(traj_f, T0), unsort(traj_q, T0)
-    pose_drift = float(np.abs(traj_f[-1][of] - traj_q[-1][oq]).max())
-    ef_seed, eq_seed = info_f["energy"][of], info_q["energy"][oq]  # energies in the order of the seeds
-    e_drift = float(np.abs(ef_seed - eq_seed).max())
-    # the seeds the two requests rank first; a swap counts only where plain's energies differ by more than the gate
-    top_f, top_q = ([int(np.flatnonzero(o == c)[0]) for c in range(5)] for o in (of, oq))
-    same_top = all(a == b or abs(eq_seed[a] - eq_seed[b]) <= ENERGY_GATE for a, b in zip(top_f, top_q))
-    log(f"pick request fused vs plain: final-pose drift {pose_drift:.3g} (gate {POSE_GATE}), energy drift per seed "
-        f"{e_drift:.3g} (gate {ENERGY_GATE}), top-5 seeds {top_f} vs {top_q}; plain rollout "
-        f"{[round(s * 1e3, 1) for s in info_q['rollout_s']]} ms, critic {info_q['critic_s'] * 1e3:.1f} ms")
-    if not (pose_drift <= POSE_GATE and e_drift <= ENERGY_GATE and same_top):
-        log("FAIL: the fused pick request drifts from the plain request")
-        return 1
+    request_drift("pick request fused vs plain", traj_f, info_f, traj_q, info_q, T0)
+    log(f"pick request (plain): rollout {[round(x * 1e3, 1) for x in info_q['rollout_s']]} ms, critic "
+        f"{info_q['critic_s'] * 1e3:.1f} ms")
 
     # ---- phase 5: the lowres stage on the mixed bfloat16 edge kernel ----
     def lowres_rollout(b, impl, hooks=(), schedule=SCHEDULE, plain_mixed=False):
@@ -843,19 +1047,181 @@ def main() -> int:
             log("FAIL: the server request returned non-finite poses or unsorted energies")
             return 1
     set_impl(None)
+
+    # ---- phase 8: the whole place request ----
+    pbundles = [place[n] for n in PLACE_MODELS]
+
+    def set_place_impl(impl):
+        for b in pbundles:
+            b.model.set_edge_impl(impl)
+
+    def place_agent():
+        return DiffusionEdfAgent(pbundles[:2], *pre_unpre, critic=pbundles[2])
+
+    with torch.no_grad():  # the keypoints each stage keeps after the bbox crop
+        kept = [int(b.model.get_query_pcd(pad_pointcloud(pgrasp_p, b.n_grasp_pad, dev)).mask.sum()) for b in pbundles]
+    log(f"place request: keypoints kept after the bbox crop per stage (lowres, highres, critic): {kept} of "
+        f"{pquery.n}")
+    if min(kept) == 0:
+        raise SmokeFailure("a place stage keeps no keypoint: the comparison would be vacuous")
+    # a field a step, every extractor attention (key and query models), the critic's field
+    p_extract = sum(1 for b in pbundles for part in (b.model.key_model, b.model.query_model)
+                    for m in part.modules() if type(m).__name__ == "GraphAttention")
+    p_expected = n_total + p_extract + 1
+    place_agent().sample(pscene, pgrasp, Ts_init[:2], generator=gen(9), record_trajectory=False, **short)  # warm-up
+    place_runs = {}
+    # the witness run: the plain request from seed translations moved by 1e-6 of themselves (about 8 float32
+    # steps: one step can vanish in the rescale to cm)
+    Ts_moved = np.concatenate([Ts_init[:, :4], Ts_init[:, 4:] * np.float32(1 + 1e-6)], -1)
+    for impl in (None, "fused", "plain", "plain, seeds moved 1e-6"):
+        set_place_impl("plain" if impl and impl.startswith("plain") else impl)
+        reset_counters()
+        traj_x, _, _, info_x = place_agent().sample(pscene, pgrasp, Ts_moved if impl and "moved" in impl else Ts_init,
+                                                    generator=gen(1), **PICK_REQUEST)
+        torch.cuda.synchronize()
+        place_runs[impl] = (traj_x, info_x, counters())
+        log(f"place request ({impl or 'default: kernel'}): {N_SEEDS} seeds, steps {info_x['steps']}, extract "
+            f"{[round(x * 1e3, 1) for x in info_x['extract_s']]} ms, rollout "
+            f"{[round(x * 1e3, 1) for x in info_x['rollout_s']]} ms "
+            f"({sum(info_x['rollout_s']) * 1e3 / n_total:.3f} ms per step), critic {info_x['critic_s'] * 1e3:.1f} ms, "
+            f"launches {place_runs[impl][2]} (expected {p_expected} on the kernel paths: {n_total} steps + "
+            f"{p_extract} extractor attentions + 1)")
+        check_request(f"place request ({impl or 'kernel'})", traj_x, info_x, n_total, N_SEEDS)
+    set_place_impl(None)
+    count8, count8f = place_runs[None][2], place_runs["fused"][2]
+    if not (count8["edge_kernel"] == p_expected and count8["fused_attention"] == 0
+            and count8f["fused_attention"] == p_expected and count8f["edge_kernel"] == 0
+            and sum(place_runs["plain"][2].values()) == 0):
+        raise SmokeFailure("the place request did not run through the expected kernels")
+    traj_q, info_q, _ = place_runs["plain"]
+    for impl in (None, "fused"):
+        request_drift(f"place request {impl or 'kernel'} vs plain", *place_runs[impl][:2], traj_q, info_q, T0)
+    place_drift_witness(place_runs, T0, (sum(PICK_REQUEST["N_steps_list"][0]), n_total + 1))
+    with torch.no_grad():
+        for impl in ("kernel", "fused", "plain"):
+            pl_model.set_edge_impl(impl)
+            wall, busy, n_kernels, _ = step_profile(pl_model, T32, pkey, pquery, time_vec, wall_steps=10)
+            log(f"place score step ({impl}): wall {wall:.3f} ms, device busy {busy:.3f} ms, idle share "
+                f"{1 - busy / wall:.3f}, kernels {n_kernels:.0f}")
+    pl_model.set_edge_impl(None)
+
+    # ---- phase 9: serving ----
+    from diffusion_edf_tpu_torch.serve import AgentService, run_server
+
+    with open(os.path.join(CONFIGS, "server.yaml")) as f:  # the served schedule is phase 4's, its knobs server.yaml's
+        served = dict(yaml.safe_load(f), pick_diffusion_configs=PICK_REQUEST, place_diffusion_configs=PICK_REQUEST)
+    agents = dict(pick_agent=DiffusionEdfAgent([bundle, highres], *pre_unpre, critic=critic),
+                  place_agent=DiffusionEdfAgent(pbundles[:2], *pre_unpre, critic=pbundles[2]))
+    t = time.perf_counter()
+    agents["pick_agent"].warmup(scene, grasp)
+    agents["place_agent"].warmup(pscene, pgrasp)
+    log(f"serving: warm-up of both agents {time.perf_counter() - t:.1f} s")
+    service = AgentService(**agents, configs=json.loads(json.dumps(served)))
+    batched = AgentService(**agents, configs=json.loads(json.dumps(served)), batching=dict(max_batch=4, window_ms=500))
+    servers = [run_server(svc, host="127.0.0.1", port=0, block=False) for svc in (service, batched)]
+    url, url_b = (f"http://127.0.0.1:{h.server_address[1]}" for h in servers)
+    n_wire = n_total + 2
+    try:
+        checks = [http(url + "/health"), http(url + "/get_configs"),
+                  http(url + "/reconfigure", {"place_trajectory_configs": dict(served["place_trajectory_configs"],
+                                                                               n_steps=8)}), http(url + "/nowhere")]
+        if not (checks[0] == (200, {"status": "ok"}) and checks[1][0] == 200 and "place_diffusion_configs" in checks[1][1]
+                and checks[2][1]["place_trajectory_configs"]["n_steps"] == 8 and checks[3][0] == 404):
+            raise SmokeFailure(f"serving: /health, /get_configs, /reconfigure or the 404 answered {checks}")
+        for task, (sc_, gr_), n_traj in (("pick", (scene, grasp), 10), ("place", (pscene, pgrasp), 8)):
+            code, out = http(url + "/denoise", wire_request(task, sc_, gr_, seed_poses(4, seed=40)))
+            if code != 200:
+                raise SmokeFailure(f"serving: {task} /denoise answered {code}: {out}")
+            check_wire_trajectory(f"{task} /denoise", out["trajectories"], n_wire, 4)
+            code, out = http(url + "/request_trajectories", wire_request(task, sc_, gr_, seed_poses(4, seed=41)))
+            if code != 200 or np.asarray(out["trajectories"]).shape != (4, n_traj, 7):
+                raise SmokeFailure(f"serving: {task} /request_trajectories answered {code}")
+            check_wire_trajectory(f"{task} /request_trajectories", out["denoise"]["trajectories"], n_wire, 4)
+            log(f"serving: {task} /denoise and /request_trajectories ok (trajectories {n_wire} x 4 x 7 in metres, "
+                f"energies {np.round(out['denoise']['energy'], 4).tolist()})")
+        code, out = http(url + "/denoise", {"task_type": "place"})
+        if code != 500 or "error" not in out:
+            raise SmokeFailure(f"serving: a bad request answered {code}, not a JSON 500")
+
+        # four concurrent place requests through one dispatch: one request's launches a Langevin step
+        import threading
+
+        reqs = [wire_request("place", *place_clouds(seed=50 + i), seed_poses(20, seed=50 + i)) for i in range(4)]
+        reset_counters()
+        one = http(url + "/denoise", reqs[0])[1]
+        l1 = counters()["edge_kernel"]
+        results = [None] * 4
+
+        def post(i):
+            results[i] = http(url_b + "/denoise", reqs[i])
+
+        reset_counters()
+        t = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        t_batched = time.perf_counter() - t
+        l4 = counters()["edge_kernel"]
+        per_step = ((l1 - p_extract - 1) / n_total, (l4 - 4 * p_extract - 1) / n_total)
+        log(f"serving: 4 concurrent place requests (20 seeds each): {t_batched * 1e3:.1f} ms, batch_stats "
+            f"{batched.batch_stats}; K1 launches {l4} against {l1} for one request ({p_extract} extractor attentions "
+            f"a request): {per_step[1]:.2f} against {per_step[0]:.2f} a Langevin step")
+        if not (all(c == 200 for c, _ in results) and batched.batch_stats["dispatches"] == 1
+                and batched.batch_stats["batched_requests"] == 4 and per_step[0] == per_step[1] == 1.0):
+            raise SmokeFailure("serving: the four place requests did not go through one dispatch")
+        for _, out in results + [(200, one)]:
+            check_wire_trajectory("place /denoise, 20 seeds", out["trajectories"], n_wire, 20)
+        t = time.perf_counter()
+        lat = []
+        for r in reqs:
+            t1 = time.perf_counter()
+            http(url + "/denoise", r)
+            lat.append(time.perf_counter() - t1)
+        t_seq = time.perf_counter() - t
+        log(f"serving: served place /denoise (20 seeds, 100 + 100 steps, critic): p50 latency "
+            f"{np.median(lat) * 1e3:.1f} ms over {len(lat)} ({', '.join(f'{x * 1e3:.1f}' for x in lat)}); 4 sequential "
+            f"{t_seq * 1e3:.1f} ms against 4 batched {t_batched * 1e3:.1f} ms ({t_seq / t_batched:.2f} x)")
+    finally:
+        for h in servers:
+            h.shutdown()
+
+    # sample_batch of two different requests at temperature 0 against two sample() calls
+    cold2 = dict(PICK_REQUEST, N_steps_list=[[10, 10], [10, 10, 5]],
+                 temperatures_list=[[0.0, 0.0], [0.0, 0.0, 0.0]])
+    pair = [place_clouds(seed=60), place_clouds(seed=61)]
+    Ts2 = np.stack([seed_poses(8, seed=60), seed_poses(8, seed=61)])
+    pa = agents["place_agent"]  # deterministic preprocessing, so both calls see the same clouds
+    traj_b2, _ = pa.sample_batch([c[0] for c in pair], [c[1] for c in pair], Ts2, generator=gen(2), **cold2)
+    batch_err = 0.0
+    for i, (sc_, gr_) in enumerate(pair):
+        traj_s, _, _, _ = pa.sample(sc_, gr_, Ts2[i], generator=gen(2), **cold2)
+        batch_err = max(batch_err, float(np.abs(traj_b2[i, -1] - traj_s[-1]).max()))
+    log(f"sample_batch of 2 place requests vs 2 sample() calls at temperature 0: final-pose max diff {batch_err:.3g} "
+        f"(gate 1e-4)")
+    if not batch_err <= 1e-4:
+        raise SmokeFailure("sample_batch differs from sample()")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     src = "diffusion_edf_tpu_torch/csrc/"
-    tfk, tf3 = k1["tensor_field"], k3["tensor_field"]  # K1 given the tensor field's own mask, as the path runs it
+    # every kernel's own keys keep their meaning: the pick tensor field (K1 and K3 given its own mask, as the
+    # path runs them) and the launches of the path first measured on it; the place shapes and the place
+    # request's launches stand beside them, in by_shape and launches_by_path
+    shapes = ("tensor_field", "place_tensor_field", "keypoint_tensor_field")
     kernels = [
         dict(name="edge_kernel", route="cuda", source=src + "edge_kernel.cu",
-             replaces="diffusion_edf_tpu/nn/edge_kernel.py:477", launches=launches, max_abs_err=max_err, **tfk),
+             replaces="diffusion_edf_tpu/nn/edge_kernel.py:477", launches=launches, max_abs_err=max_err,
+             launches_by_path=dict(pick_lowres_stage=launches, place_request=count8["edge_kernel"]),
+             by_shape={n: k1[n] for n in shapes}, **k1["tensor_field"]),
         dict(name="edge_kernel_bf16", route="cuda", source=src + "edge_kernel.cu",
              replaces="diffusion_edf_tpu/nn/edge_kernel.py:568", launches=count5["edge_kernel_bf16"],
              max_abs_err=k2_err, **k2["tensor_field"]),
         dict(name="fused_attention", route="cuda", source=src + "fused_attention.cu",
              replaces="diffusion_edf_tpu/nn/fused_attention.py:331", launches=count4["fused_attention"],
-             max_abs_err=k3_err, **tf3),
+             max_abs_err=k3_err, launches_by_path=dict(pick_request=count4["fused_attention"],
+                                                       place_request=count8f["fused_attention"]),
+             by_shape={n: k3[n] for n in shapes}, **k3["tensor_field"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,15 @@
 """Inference agent: one or more cascade stages of annealed Langevin sampling,
 then an optional EBM critic that ranks the final poses by energy (counterpart
-of the JAX package's ``agent.py``; request batching is not ported yet).  Per
-stage the scene and grasp features are extracted once, then the rollout runs
-on the model's device; the final pose of one stage seeds the next."""
+of the JAX package's ``agent.py``).  Per stage the scene and grasp features
+are extracted once, then the rollout runs on the model's device; the final
+pose of one stage seeds the next.
+
+``sample_batch`` serves R requests that share a diffusion config with one
+score evaluation per Langevin step for all of them: the request axis is
+folded into the rows of the key tensor field (each query point still attends
+only to its own request's key points), so the edge kernels see R times the
+rows of one request.  ``sample`` is ``sample_batch`` of one request.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +19,9 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .data import stack_points
 from .diffusion.langevin import build_schedule, langevin_sample
+from .nn import cuda_build
 from .train.data import PointCloud, TargetPoseDemo, compose_proc_fn, pad_pointcloud
 from .train.factory import build_score_model
 from .train.trainer import load_configs
@@ -89,7 +98,6 @@ class DiffusionEdfAgent:
         demo = self.proc_fn(TargetPoseDemo(scene_pcd=scene_pcd, grasp_pcd=grasp_pcd, target_poses=np.zeros((1, 7))))
         return demo.scene_pcd, demo.grasp_pcd
 
-    @torch.no_grad()
     def sample(
         self,
         scene_pcd: PointCloud,
@@ -105,56 +113,135 @@ class DiffusionEdfAgent:
         generator: Optional[torch.Generator] = None,
         record_trajectory: bool = True,
     ) -> Tuple[np.ndarray, PointCloud, PointCloud, Dict[str, Any]]:
-        """Cascaded annealed Langevin sampling.  ``generator`` draws the
-        Langevin noise and must live on the models' device.  Returns
-        (trajectory (steps + stages, nT, 7) in processed (cm) units, processed
-        scene, processed grasp, info with per-stage host timings).  With a
-        critic the trajectory's pose axis is sorted by the energy of the final
-        poses, ascending, and ``info["energy"]`` holds the sorted energies."""
+        """Cascaded annealed Langevin sampling of one request.  ``generator``
+        draws the Langevin noise and must live on the models' device; without
+        one, a generator is seeded from ``np.random``.  Returns (trajectory
+        (steps + stages, nT, 7) in processed (cm) units, processed scene,
+        processed grasp, info with per-stage host timings).  With a critic the
+        trajectory's pose axis is sorted by the energy of the final poses,
+        ascending, and ``info["energy"]`` holds the sorted energies."""
         scene_p, grasp_p = self._prep(scene_pcd, grasp_pcd)
+        traj, info = self._run([(scene_p, grasp_p)], np.asarray(Ts_init, dtype=np.float32)[None], dict(
+            N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
+            diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
+            time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
+        ), generator, record_trajectory)
+        if "energy" in info:
+            info["energy"] = info["energy"][0]
+        return traj[0], scene_p, grasp_p, info
+
+    def sample_batch(
+        self,
+        scene_pcds: Sequence[PointCloud],
+        grasp_pcds: Sequence[PointCloud],
+        Ts_init: np.ndarray,  # (R, nT, 7) in raw (metre) units
+        N_steps_list: Sequence[Sequence[int]],
+        timesteps_list: Sequence[Sequence[float]],
+        temperatures_list: Sequence[Union[float, Sequence[float]]],
+        diffusion_schedules_list: Sequence[Sequence[Sequence[float]]],
+        log_t_schedule: bool = True,
+        time_exponent_temp: float = 1.0,
+        time_exponent_alpha: float = 0.5,
+        generator: Optional[torch.Generator] = None,
+        record_trajectory: bool = True,
+        n_seeds: Optional[Sequence[int]] = None,
+    ) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """R independent (scene, grasp, seeds) requests that share the
+        diffusion config, sampled together: extraction runs per request, every
+        Langevin step and the critic once for all.  Returns (trajectory (R,
+        steps + stages, nT, 7) in processed (cm) units, info; with a critic
+        every request's pose axis is sorted by its energies, ascending, and
+        ``info["energy"]`` is (R, nT)).  ``n_seeds`` gives each request's
+        count of real seeds when the caller padded the seed axis to a common
+        nT: the critic gives the padding seeds of request i (those past
+        ``n_seeds[i]``) energy +inf, so they sort after every real seed.
+
+        Noise: every step draws one (R, nT, 3) block for the angular part,
+        then one for the linear part, from ``generator``, request after
+        request; so R = 1 with a generator of a given seed gives what
+        ``sample`` gives with that seed."""
+        assert len(scene_pcds) == len(grasp_pcds) == np.asarray(Ts_init).shape[0]
+        preps = [self._prep(s, g) for s, g in zip(scene_pcds, grasp_pcds)]
+        return self._run(preps, np.asarray(Ts_init, dtype=np.float32), dict(
+            N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
+            diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
+            time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
+        ), generator, record_trajectory, n_seeds)
+
+    @staticmethod
+    def _extract(bundle: ModelBundle, preps):
+        """Every request's key scales and query, stacked over requests."""
+        model, dev = bundle.model, bundle.device
+        keys = [model.get_key_pcd_multiscale(pad_pointcloud(s, bundle.n_scene_pad, dev)) for s, _ in preps]
+        query = stack_points([model.get_query_pcd(pad_pointcloud(g, bundle.n_grasp_pad, dev)) for _, g in preps])
+        return [stack_points(scale) for scale in zip(*keys)], query
+
+    @torch.no_grad()
+    def _run(self, preps, Ts_init: np.ndarray, cfg: Dict[str, Any], generator, record_trajectory: bool,
+             n_seeds: Optional[Sequence[int]] = None):
+        R, nT = Ts_init.shape[:2]
         pose_scale = 1.0 / self.unrescale if self.unrescale != 1.0 else 1.0
-        T0 = np.asarray(Ts_init, dtype=np.float32)
-        T0 = np.concatenate([T0[:, :4], T0[:, 4:] * np.float32(pose_scale)], axis=-1)
+        T0 = np.concatenate([Ts_init[..., :4], Ts_init[..., 4:] * np.float32(pose_scale)], axis=-1)
         info: Dict[str, Any] = {"extract_s": [], "rollout_s": [], "steps": []}
         trajs = []
         T = None
         for mi, bundle in enumerate(self.models):
             model, dev = bundle.model, bundle.device
-            T = torch.as_tensor(T0, device=dev) if T is None else T.to(dev)
+            T = torch.as_tensor(T0.reshape(R * nT, 7), device=dev) if T is None else T.to(dev)
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(int(np.random.randint(0, 2**31 - 1)))
             t0 = time.perf_counter()
-            key_ms = model.get_key_pcd_multiscale(pad_pointcloud(scene_p, bundle.n_scene_pad, dev))
-            query = model.get_query_pcd(pad_pointcloud(grasp_p, bundle.n_grasp_pad, dev))
+            key_ms, query = self._extract(bundle, preps)
             _sync(dev)
             t1 = time.perf_counter()
             sched = build_schedule(
-                diffusion_schedules=diffusion_schedules_list[mi], N_steps=N_steps_list[mi],
-                timesteps=timesteps_list[mi], ang_mult=bundle.ang_mult, lin_mult=bundle.lin_mult,
-                temperatures=temperatures_list[mi], log_t_schedule=log_t_schedule,
-                time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
+                diffusion_schedules=cfg["diffusion_schedules_list"][mi], N_steps=cfg["N_steps_list"][mi],
+                timesteps=cfg["timesteps_list"][mi], ang_mult=bundle.ang_mult, lin_mult=bundle.lin_mult,
+                temperatures=cfg["temperatures_list"][mi], log_t_schedule=cfg["log_t_schedule"],
+                time_exponent_temp=cfg["time_exponent_temp"], time_exponent_alpha=cfg["time_exponent_alpha"],
             )
-            T, traj = langevin_sample(
-                lambda Ts, t: model.score(Ts, key_ms, query, t), T, sched,
-                bundle.ang_mult, bundle.lin_mult, generator=generator, record_trajectory=record_trajectory,
-            )
+
+            def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
+                ang, lin = model.score(Ts.reshape(R, nT, 7), key_ms, query, t.reshape(R, nT))
+                return ang.reshape(R * nT, 3), lin.reshape(R * nT, 3)
+
+            T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
+                                      generator=generator, record_trajectory=record_trajectory)
             _sync(dev)
             info["extract_s"].append(t1 - t0)
             info["rollout_s"].append(time.perf_counter() - t1)
             info["steps"].append(len(sched.t))
-            trajs.append((traj if record_trajectory else T[None]).cpu().numpy())
-        Ts_out = np.concatenate(trajs, axis=0)
+            traj = traj if record_trajectory else T[None]
+            trajs.append(traj.reshape(-1, R, nT, 7).transpose(0, 1).cpu().numpy())
+        Ts_out = np.concatenate(trajs, axis=1)  # (R, steps + stages, nT, 7)
         if self.critic is not None:
             c = self.critic
-            model, dev = c.model, c.device
+            dev = c.device
             t0 = time.perf_counter()
-            key_ms = model.get_key_pcd_multiscale(pad_pointcloud(scene_p, c.n_scene_pad, dev))
-            query = model.get_query_pcd(pad_pointcloud(grasp_p, c.n_grasp_pad, dev))
-            Tl = torch.as_tensor(Ts_out[-1], device=dev)
-            energy = model.energy(Tl, key_ms, query, torch.ones(Tl.shape[0], device=dev)).cpu().numpy()
+            key_ms, query = self._extract(c, preps)
+            Tl = torch.as_tensor(np.ascontiguousarray(Ts_out[:, -1]), device=dev)
+            energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
             info["critic_s"] = time.perf_counter() - t0
-            order = np.argsort(energy)
-            Ts_out = Ts_out[:, order]
-            info["energy"] = energy[order]
-        return Ts_out, scene_p, grasp_p, info
+            if n_seeds is not None:
+                energy[np.arange(nT)[None, :] >= np.asarray(n_seeds)[:, None]] = np.inf
+            order = np.argsort(energy, axis=-1)
+            Ts_out = np.take_along_axis(Ts_out, order[:, None, :, None], axis=2)
+            info["energy"] = np.take_along_axis(energy, order, axis=-1)
+        return Ts_out, info
+
+    def warmup(self, scene_pcd: PointCloud, grasp_pcd: PointCloud) -> None:
+        """Build the CUDA kernels (``nvcc`` at first use, ``nn/cuda_build.py``)
+        and fill the operand caches of every attention (the folded weights and
+        the tensor-core operands, built once per set of weights) with a
+        one-step request of one seed, so that the first request served pays
+        for neither.  Nothing else is warmed: PyTorch compiles nothing per
+        shape, so the request's seeds and steps do not matter."""
+        if any(b.device.type == "cuda" for b in self.models):
+            cuda_build.build_all()
+        n = len(self.models)
+        self.sample(scene_pcd, grasp_pcd, np.array([[1.0, 0, 0, 0, 0, 0, 0]]), N_steps_list=[[1]] * n,
+                    timesteps_list=[[0.01]] * n, temperatures_list=[[1.0]] * n,
+                    diffusion_schedules_list=[[[1.0, 0.9]]] * n, record_trajectory=False)
 
     def unprocess_poses(self, Ts: np.ndarray) -> np.ndarray:
         """cm -> metres on the translation part."""

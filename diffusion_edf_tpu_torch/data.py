@@ -1,29 +1,42 @@
 """Padded point clouds and padded neighbourhoods (counterpart of the JAX
 package's ``data.py``): every container carries a boolean validity ``mask``
-instead of ragged lengths, and edges are ``(N_dst, K)`` neighbour slots."""
+instead of ragged lengths, and edges are ``(N_dst, K)`` neighbour slots.
+Clouds of several requests are stacked on a leading axis (:func:`stack_points`:
+``x`` (R, N, 3)); ``n`` is the number of points of one cloud either way."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["FeaturedPoints", "GraphEdges", "concat_edges"]
+__all__ = ["FeaturedPoints", "GraphEdges", "concat_edges", "stack_points"]
 
 
 @dataclasses.dataclass
 class FeaturedPoints:
-    x: torch.Tensor  # (N, 3) positions
-    f: torch.Tensor  # (N, F) irreps features
-    mask: torch.Tensor  # (N,) bool validity
-    w: Optional[torch.Tensor] = None  # (N,) optional point weights
+    x: torch.Tensor  # ([R,] N, 3) positions
+    f: torch.Tensor  # ([R,] N, F) irreps features
+    mask: torch.Tensor  # ([R,] N) bool validity
+    w: Optional[torch.Tensor] = None  # ([R,] N) optional point weights
 
     @property
     def n(self) -> int:
-        return self.x.shape[0]
+        return self.x.shape[-2]
 
     def replace(self, **kw) -> "FeaturedPoints":
         return dataclasses.replace(self, **kw)
+
+
+def stack_points(points: Sequence[FeaturedPoints]) -> FeaturedPoints:
+    """Clouds of the same size stacked on a new leading (request) axis."""
+    ws = [p.w for p in points]
+    return FeaturedPoints(
+        x=torch.stack([p.x for p in points]),
+        f=torch.stack([p.f for p in points]),
+        mask=torch.stack([p.mask for p in points]),
+        w=None if any(w is None for w in ws) else torch.stack(ws),
+    )
 
 
 @dataclasses.dataclass

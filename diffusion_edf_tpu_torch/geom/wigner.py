@@ -39,26 +39,21 @@ def wigner_D_blocks(q: torch.Tensor, lmax: int) -> Dict[int, torch.Tensor]:
 
 
 def rotate_irreps(irreps: Irreps, f: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Rotate irreps features ``f`` (..., dim) by quaternions ``q`` (..., 4).
-    With ``f`` (nQ, dim) and ``q`` (nT, 4) the result is (nT, nQ, dim)."""
+    """Per request: features ``f`` (R, nQ, dim) rotated by that request's
+    quaternions ``q`` (R, nT, 4) -> (R, nT, nQ, dim)."""
     irreps = Irreps(irreps)
     D = wigner_D_blocks(q, irreps.lmax)
-    q_batch = q.shape[:-1]
-    f_batch = f.shape[:-1]
+    r, nq = f.shape[:2]
+    nt = q.shape[1]
     outs = []
     i = 0
     for mul, ir in irreps:
         d = ir.dim
-        blk = f[..., i : i + mul * d].reshape(*f_batch, mul, d)
+        blk = f[..., i : i + mul * d].reshape(r, nq, mul, d)
         i += mul * d
         if ir.l == 0:
-            rot = blk.expand(q_batch + f_batch + (mul, d))
+            rot = blk[:, None].expand(r, nt, nq, mul, d)
         else:
-            Dl = D[ir.l].reshape(q_batch + (1,) * len(f_batch) + (d, d))
-            rot = torch.einsum(
-                "...ij,...uj->...ui",
-                Dl.expand(q_batch + f_batch + (d, d)),
-                blk.expand(q_batch + f_batch + (mul, d)),
-            )
-        outs.append(rot.reshape(q_batch + f_batch + (mul * d,)))
+            rot = torch.einsum("rtij,rquj->rtqui", D[ir.l], blk)
+        outs.append(rot.reshape(r, nt, nq, mul * d))
     return torch.cat(outs, dim=-1)

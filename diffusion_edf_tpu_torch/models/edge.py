@@ -1,6 +1,11 @@
 """Edge construction and encoding over padded neighbourhoods (counterpart of
 the JAX package's ``models/edge.py``).  Coordinates are in centimetres: the
-1e-4 squared-length floors are 0.01 cm, below the 1 cm voxel pitch."""
+1e-4 squared-length floors are 0.01 cm, below the 1 cm voxel pitch.
+
+The encoders take clouds stacked over R requests (``x`` (R, N, 3)): each
+destination's neighbours come from its own request's sources, and the edges
+come back flat, ``(R * Nd, K)`` rows whose indices point into the R * Ns
+sources laid end to end, request after request."""
 from __future__ import annotations
 
 import math
@@ -73,6 +78,15 @@ class _EncoderCore(nn.Module):
                           logits=log_cutoff, weights=edge_cutoff)
 
 
+def _flat(src: FeaturedPoints, dst: FeaturedPoints, idx: torch.Tensor, mask: torch.Tensor):
+    """Request-local neighbourhoods ``(R, Nd, K)`` -> flat source and
+    destination positions and ``(R * Nd, K)`` indices into the flat sources."""
+    r, ns = src.x.shape[:2]
+    idx = idx + (torch.arange(r, device=idx.device) * ns)[:, None, None]
+    k = idx.shape[-1]
+    return src.x.reshape(-1, 3), dst.x.reshape(-1, 3), idx.reshape(-1, k), mask.reshape(-1, k)
+
+
 def _nonscalar_ranges(r_mincut: Optional[float]):
     return (0.2 * r_mincut, 1.0 * r_mincut, None, None) if r_mincut is not None else None
 
@@ -94,7 +108,7 @@ class RadiusEdgeEncoder(nn.Module):
 
     def forward(self, src: FeaturedPoints, dst: FeaturedPoints) -> GraphEdges:
         idx, mask = radius_neighbors(src.x, dst.x, self.r_cutoff, min(self.k, src.n), src_mask=src.mask, dst_mask=dst.mask)
-        return self.core(src.x, dst.x, idx, mask, getattr(self, "length_enc", None))
+        return self.core(*_flat(src, dst, idx, mask), getattr(self, "length_enc", None))
 
 
 class InfiniteEdgeEncoder(nn.Module):
@@ -115,4 +129,4 @@ class InfiniteEdgeEncoder(nn.Module):
 
     def forward(self, src: FeaturedPoints, dst: FeaturedPoints) -> GraphEdges:
         idx, mask = dense_neighbors(src.n, dst.n, src_mask=src.mask, dst_mask=dst.mask, device=src.x.device)
-        return self.core(src.x, dst.x, idx, mask, getattr(self, "length_enc", None))
+        return self.core(*_flat(src, dst, idx, mask), getattr(self, "length_enc", None))

@@ -2,9 +2,11 @@
 JAX package's ``models/score_head.py``): the denoising score head
 ``ScoreModelHead`` and the energy-based critic head ``EbmScoreModelHead``.
 
-Per pose batch (nT poses x nQ query points): time encoding -> per-scale time
+Per pose batch (R requests x nT poses x nQ query points; the clouds come
+stacked over the R requests): time encoding -> per-scale time
 MLPs; the query cloud is moved by every pose (positions by SE(3), features
-by Wigner-D); the key tensor field is evaluated at the nT*nQ moved points.
+by Wigner-D); the key tensor field is evaluated at the R*nT*nQ moved points
+in one call.
 The score head combines field and query features into prescore vectors with
 two SeparableFCTPs; frame change, orbital term and query-weighted sums give
 (ang, lin).  The critic head takes the query-weighted mean squared difference
@@ -92,32 +94,33 @@ class _FieldHead(nn.Module):
 
     def field_at_poses(
         self,
-        Ts: torch.Tensor,  # (nT, 7)
-        key_pcd_multiscale: List[FeaturedPoints],
-        query_pcd: FeaturedPoints,
-        time: torch.Tensor,  # (nT,)
+        Ts: torch.Tensor,  # (R, nT, 7)
+        key_pcd_multiscale: List[FeaturedPoints],  # stacked over R
+        query_pcd: FeaturedPoints,  # stacked over R
+        time: torch.Tensor,  # (R, nT)
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(key_features (nT*nQ, Fk), f_t (nT*nQ, Fq))``: the key field at
-        the moved query points and the rotated query features."""
-        assert Ts.ndim == 2 and Ts.shape[-1] == 7
-        nT, nQ = Ts.shape[0], query_pcd.n
+        """``(key_features (R*nT*nQ, Fk), f_t (R*nT*nQ, Fq))``: the key field
+        at the moved query points and the rotated query features, every
+        request's poses moving its own query cloud in its own key field."""
+        assert Ts.ndim == 3 and Ts.shape[-1] == 7
+        r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
         time_enc = self.time_enc(time)
         q = Ts[..., :4]
-        x_t = so3.transform_points(query_pcd.x, Ts)  # (nT, nQ, 3)
-        f_t = wigner.rotate_irreps(self.irreps_query, query_pcd.f, q)  # (nT, nQ, Fq)
-        query_flat = FeaturedPoints(
-            x=x_t.reshape(nT * nQ, 3),
-            f=Ts.new_zeros(nT * nQ, 0),
-            mask=query_pcd.mask[None, :].expand(nT, nQ).reshape(-1),
+        x_t = so3.transform_points(query_pcd.x[:, None], Ts)  # (R, nT, nQ, 3)
+        f_t = wigner.rotate_irreps(self.irreps_query, query_pcd.f, q)  # (R, nT, nQ, Fq)
+        query_moved = FeaturedPoints(
+            x=x_t.reshape(r, nT * nQ, 3),
+            f=Ts.new_zeros(r, nT * nQ, 0),
+            mask=query_pcd.mask[:, None, :].expand(r, nT, nQ).reshape(r, nT * nQ),
         )
         ctx = None
         if self.edge_time_encoding:
             ctx = [
-                mlp(time_enc)[:, None, :].expand(nT, nQ, self.time_emb_dim).reshape(nT * nQ, -1)
+                mlp(time_enc)[:, :, None, :].expand(r, nT, nQ, self.time_emb_dim).reshape(r * nT * nQ, -1)
                 for mlp in self.time_mlps
             ]
-        key_features = self.key_tensor_field(query_flat, key_pcd_multiscale, context_emb=ctx).f
-        return key_features, f_t.reshape(nT * nQ, -1)
+        key_features = self.key_tensor_field(query_moved, key_pcd_multiscale, context_emb=ctx).f
+        return key_features, f_t.reshape(r * nT * nQ, -1)
 
 
 class ScoreModelHead(_FieldHead):
@@ -134,34 +137,35 @@ class ScoreModelHead(_FieldHead):
         )
 
     def forward(self, Ts, key_pcd_multiscale, query_pcd, time) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(ang (nT, 3), lin (nT, 3))`` score of every pose."""
-        nT, nQ = Ts.shape[0], query_pcd.n
+        """``(ang (R, nT, 3), lin (R, nT, 3))`` score of every pose of every
+        request (see :meth:`field_at_poses`)."""
+        r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
         q = Ts[..., :4]
         key_features, f_t_flat = self.field_at_poses(Ts, key_pcd_multiscale, query_pcd, time)
         lin_vel, ang_spin = (tp(key_features, f_t_flat)[..., 1:] for tp in self.vel_tps)
-        lin_vel = lin_vel.reshape(nT, nQ, self.n_pre, 3).mean(dim=-2)
-        ang_spin = ang_spin.reshape(nT, nQ, self.n_pre, 3).mean(dim=-2)
+        lin_vel = lin_vel.reshape(r, nT, nQ, self.n_pre, 3).mean(dim=-2)
+        ang_spin = ang_spin.reshape(r, nT, nQ, self.n_pre, 3).mean(dim=-2)
 
-        qinv = so3.quaternion_invert(q)[:, None, :]
+        qinv = so3.quaternion_invert(q)[:, :, None, :]
         lin_vel = so3.quaternion_apply(qinv, lin_vel)
         ang_spin = so3.quaternion_apply(qinv, ang_spin)
         ang_orbital = torch.linalg.cross(
-            (query_pcd.x[None, :, :] / self.lin_mult).expand_as(lin_vel), lin_vel, dim=-1
+            (query_pcd.x[:, None, :, :] / self.lin_mult).expand_as(lin_vel), lin_vel, dim=-1
         )
         qw = torch.where(query_pcd.mask, query_pcd.w, torch.zeros_like(query_pcd.w))
-        lin = torch.einsum("q,tqi->ti", qw, lin_vel)
-        ang = torch.einsum("q,tqi->ti", qw, ang_orbital + ang_spin)
+        lin = torch.einsum("rq,rtqi->rti", qw, lin_vel)
+        ang = torch.einsum("rq,rtqi->rti", qw, ang_orbital + ang_spin)
         return ang, lin
 
 
 class EbmScoreModelHead(_FieldHead):
-    """Energy-based critic head: per-pose energy ``(nT,)``, the mean squared
-    difference of the key field and the moved query features per query point,
-    weighted by the query weights under the query mask."""
+    """Energy-based critic head: per-pose energy ``(R, nT)``, the mean
+    squared difference of the key field and the moved query features per
+    query point, weighted by the query weights under the query mask."""
 
     def forward(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
-        nT, nQ = Ts.shape[0], query_pcd.n
+        r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
         key_features, f_t_flat = self.field_at_poses(Ts, key_pcd_multiscale, query_pcd, time)
         diff2 = torch.square(key_features - f_t_flat).sum(dim=-1) * (1.0 / self.irreps_key.dim)
         qw = torch.where(query_pcd.mask, query_pcd.w, torch.zeros_like(query_pcd.w))
-        return torch.einsum("q,tq->t", qw, diff2.reshape(nT, nQ))
+        return torch.einsum("rq,rtq->rt", qw, diff2.reshape(r, nT, nQ))

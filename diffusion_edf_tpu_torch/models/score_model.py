@@ -1,7 +1,13 @@
 """Score model assembly (counterpart of the JAX package's
 ``models/score_model.py::MultiscaleScoreModel``, inference methods): key =
-UNet extractor, query = static keypoints, head = the denoising score head or,
-with ``ebm: true`` in the head's config, the energy-based critic head."""
+UNet extractor, query = static keypoints (pick models) or the keypoint
+extractor (place models), head = the denoising score head or, with ``ebm:
+true`` in the head's config, the energy-based critic head.
+
+``score`` and ``energy`` take one request (poses (nT, 7), the clouds as
+``get_key_pcd_multiscale`` / ``get_query_pcd`` return them) or R requests
+at once (poses (R, nT, 7), every cloud stacked over R by
+``data.stack_points``); one request runs as R = 1."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -9,14 +15,35 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data import FeaturedPoints
+from ..data import FeaturedPoints, stack_points
 from ..geom.irreps import Irreps
 from ..nn.attention import EDGE_IMPLS, GraphAttention
 from .extractor import UnetFeatureExtractor
-from .keypoint import StaticKeypointModel
+from .keypoint import KeypointExtractor, StaticKeypointModel
 from .score_head import EbmScoreModelHead, ScoreModelHead
 
 __all__ = ["MultiscaleScoreModel"]
+
+
+def _build_query(query_model: str, query_kwargs: Dict) -> Tuple[nn.Module, Irreps]:
+    """The query model and the irreps of its output features."""
+    if query_model == "StaticKeypointModel":
+        return StaticKeypointModel(query_kwargs["keypoint_coords"], query_kwargs["irreps_output"]), \
+            Irreps(query_kwargs["irreps_output"])
+    if query_model == "KeypointExtractor":
+        return KeypointExtractor(**query_kwargs), Irreps(query_kwargs["tensor_field_kwargs"]["irreps_output"])
+    raise ValueError(query_model)
+
+
+def _stacked(Ts, key_pcd_multiscale, query_pcd, time):
+    """Compatibility shim for the single-request form of ``score`` and
+    ``energy`` ((nT, 7) poses, flat clouds), which only the older tests and
+    ``chip_smoke.py``'s kernel captures still use; the agent always passes the
+    stacked form.  Returns ``(Ts, key clouds, query, time)`` as R = 1 and
+    whether they were wrapped."""
+    if Ts.ndim == 3:
+        return Ts, key_pcd_multiscale, query_pcd, time, False
+    return Ts[None], [stack_points([p]) for p in key_pcd_multiscale], stack_points([query_pcd]), time[None], True
 
 
 class MultiscaleScoreModel(nn.Module):
@@ -34,12 +61,9 @@ class MultiscaleScoreModel(nn.Module):
         fe_name = key_kwargs["feature_extractor_name"]
         if fe_name != "UnetFeatureExtractor":
             raise NotImplementedError(f"{fe_name} is not ported yet")
-        if query_model != "StaticKeypointModel":
-            raise NotImplementedError(f"query model {query_model} is not ported yet")
         fe_kwargs = dict(key_kwargs["feature_extractor_kwargs"])
         self.key_model = UnetFeatureExtractor(**fe_kwargs)
-        qk = dict(query_kwargs)
-        self.query_model = StaticKeypointModel(qk["keypoint_coords"], qk["irreps_output"])
+        self.query_model, irreps_query = _build_query(query_model, query_kwargs)
         kw = dict(score_head_kwargs)
         self.use_ebm = bool(kw.pop("ebm", False))
         tf = dict(kw.pop("key_tensor_field_kwargs"))
@@ -49,7 +73,7 @@ class MultiscaleScoreModel(nn.Module):
             max_time=float(kw.pop("max_time")),
             time_emb_mlp=tuple(kw.pop("time_emb_mlp")),
             key_tensor_field_kwargs=tf,
-            irreps_query_edf=Irreps(qk["irreps_output"]),
+            irreps_query_edf=irreps_query,
             lin_mult=float(kw.pop("lin_mult")),
             ang_mult=float(kw.pop("ang_mult")),
             time_enc_n=float(kw.pop("time_enc_n", 10000.0)),
@@ -72,15 +96,20 @@ class MultiscaleScoreModel(nn.Module):
         return self.query_model(pcd)
 
     def score(self, Ts, key_pcd_multiscale, query_pcd, time) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(ang, lin)``, each (nT, 3) for one request, (R, nT, 3) for R."""
         if self.use_ebm:
             raise NotImplementedError("the score of an EBM model (the gradient of its energy, ebm_score) "
                                       "comes with the training port; call energy()")
-        return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
+        Ts, key_ms, query, time, one = _stacked(Ts, key_pcd_multiscale, query_pcd, time)
+        ang, lin = self.score_head(Ts, key_ms, query, time)
+        return (ang[0], lin[0]) if one else (ang, lin)
 
     def energy(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
-        """Per-pose energies ``(nT,)`` of an EBM model."""
+        """Per-pose energies of an EBM model: (nT,) for one request, (R, nT) for R."""
         assert self.use_ebm, "energy() needs a model built with ebm: true"
-        return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
+        Ts, key_ms, query, time, one = _stacked(Ts, key_pcd_multiscale, query_pcd, time)
+        e = self.score_head(Ts, key_ms, query, time)
+        return e[0] if one else e
 
     def forward(self, Ts, key_pcd, query_pcd, time):
         return self.score(Ts, self.get_key_pcd_multiscale(key_pcd), self.get_query_pcd(query_pcd), time)

@@ -5,7 +5,8 @@ scales of a multiscale key cloud (counterpart of the JAX package's
 Per scale n: an edge encoder (finite radius, or dense for a ``null``
 radius), the length (+ per-scale context) embedding and a pre-linear; the
 scales are concatenated along the neighbour-slot axis and Equiformer blocks
-attend over the union.
+attend over the union.  The clouds come stacked over requests, so one call
+serves the query points of several requests (``agent.sample_batch``).
 """
 from __future__ import annotations
 
@@ -96,8 +97,13 @@ class MultiscaleTensorField(nn.Module):
 
     def forward(self, query_points: FeaturedPoints, input_points_multiscale: List[FeaturedPoints],
                 context_emb: Optional[List[torch.Tensor]] = None) -> FeaturedPoints:
+        """``query_points`` and every scale of ``input_points_multiscale``
+        stacked over R requests (``x`` (R, N, 3)); ``context_emb`` per scale
+        (R * Nd, C).  Each query point attends to its own request's key
+        points.  Returns the R * Nd query points flat, request after request."""
         assert len(input_points_multiscale) == self.n_scales
         assert (context_emb is not None) == (self.edge_context_emb_dim is not None)
+        r = query_points.x.shape[0]
         all_edges: Optional[GraphEdges] = None
         n_total = 0
         for n, pts in enumerate(input_points_multiscale):
@@ -110,16 +116,21 @@ class MultiscaleTensorField(nn.Module):
             if not self.use_edge_weights:
                 edges = edges.replace(logits=torch.zeros_like(edges.mask, dtype=scalars.dtype), weights=None)
             edges = edges.replace(scalars=scalars, idx=edges.idx + n_total)
-            n_total += pts.n
+            n_total += r * pts.n
             all_edges = edges if all_edges is None else concat_edges(all_edges, edges)
-        ws = [p.w for p in input_points_multiscale]
-        flat_src = FeaturedPoints(
-            x=torch.cat([p.x for p in input_points_multiscale]),
-            f=torch.cat([p.f for p in input_points_multiscale]),
-            mask=torch.cat([p.mask for p in input_points_multiscale]),
-            w=None if any(w is None for w in ws) else torch.cat(ws),
-        )
-        out = self.gnn_block_init(flat_src, query_points, all_edges)
+        flat_src = _flat_points(input_points_multiscale)
+        out = self.gnn_block_init(flat_src, _flat_points([query_points]), all_edges)
         for i in range(self.n_layers - 1):
             out = getattr(self, f"gnn_block_{i}")(flat_src, out, all_edges)
         return out
+
+
+def _flat_points(clouds: List[FeaturedPoints]) -> FeaturedPoints:
+    """Stacked clouds laid end to end: scale after scale, request after request."""
+    ws = [p.w for p in clouds]
+    return FeaturedPoints(
+        x=torch.cat([p.x.reshape(-1, 3) for p in clouds]),
+        f=torch.cat([p.f.reshape(p.mask.numel(), p.f.shape[-1]) for p in clouds]),
+        mask=torch.cat([p.mask.reshape(-1) for p in clouds]),
+        w=None if any(w is None for w in ws) else torch.cat([w.reshape(-1) for w in ws]),
+    )

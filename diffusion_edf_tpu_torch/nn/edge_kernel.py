@@ -38,9 +38,12 @@ and read the weights in another form, built once per set of weights by
 :func:`mma_operands`: transposed, split into TF32 ``hi + lo`` parts where
 the product is float32, padded, and cut into the chunks of 16 lanes that the
 kernel stages through shared memory (:func:`chunk_schedule`).  They take the
-widths of the pick models' three instantiations, ``(n_comb, attn)`` padded
-to multiples of 32 as (352, 256), (192, 128) and (64, 32); any other width
-raises ``ValueError``.  The mixed mode takes no mask.
+widths of three instantiations, ``(n_comb, attn)`` padded to multiples of 32
+as (352, 256), (192, 128) and (64, 32): every attention of the pick and
+place models runs on one of them (the place models' keypoint fields, like
+their key fields, on (352, 256), with a radial MLP of 64 -> 32 -> 32, a
+runtime width); any other width raises ``ValueError``.  The mixed mode takes
+no mask.
 """
 from __future__ import annotations
 

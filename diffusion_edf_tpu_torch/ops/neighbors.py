@@ -1,7 +1,10 @@
 """Static-shape neighbourhoods: padded radius search, FPS and dense
 bipartite connectivity (counterpart of the JAX package's
 ``ops/neighbors.py``).  Every neighbourhood is a padded ``(N_dst, K)`` index
-array plus a validity mask."""
+array plus a validity mask.  The radius search and the dense connectivity
+also take clouds with leading batch axes (one cloud per request): each
+destination then finds its neighbours in its own request's sources, with
+indices local to that request."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -12,11 +15,11 @@ __all__ = ["pairwise_sqdist", "radius_neighbors", "dense_neighbors", "farthest_p
 
 
 def pairwise_sqdist(dst_x: torch.Tensor, src_x: torch.Tensor) -> torch.Tensor:
-    """Squared distances (Nd, Ns) in the expanded form."""
+    """Squared distances (..., Nd, Ns) in the expanded form."""
     d2 = (
         torch.sum(dst_x * dst_x, dim=-1, keepdim=True)
-        - 2.0 * dst_x @ src_x.T
-        + torch.sum(src_x * src_x, dim=-1)[None, :]
+        - 2.0 * dst_x @ src_x.transpose(-1, -2)
+        + torch.sum(src_x * src_x, dim=-1)[..., None, :]
     )
     return torch.clamp(d2, min=0.0)
 
@@ -33,17 +36,19 @@ def radius_neighbors(
     exclude_src_owner: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each destination, the k nearest valid sources within ``r`` ->
-    (idx (Nd, k) long, valid (Nd, k) bool); invalid slots point at source 0.
+    (idx (..., Nd, k) long, valid (..., Nd, k) bool); invalid slots point at
+    source 0.  Leading axes of ``src_x`` (..., Ns, 3) and ``dst_x`` (...,
+    Nd, 3) are batch axes; the ``exclude_*`` options take unbatched clouds.
 
     Tied or padded slots may come out in another order than ``lax.top_k``
     gives (``torch.topk`` is not stable on CUDA); the set of valid
     neighbours is the same."""
-    ns, nd = src_x.shape[0], dst_x.shape[0]
+    ns, nd = src_x.shape[-2], dst_x.shape[-2]
     assert k <= ns, f"k={k} exceeds source count {ns}"
     d2 = pairwise_sqdist(dst_x, src_x)
     bad = d2 > r * r
     if src_mask is not None:
-        bad |= ~src_mask[None, :]
+        bad |= ~src_mask[..., None, :]
     if exclude_src_idx is not None:
         bad |= torch.arange(ns, device=d2.device)[None, :] == exclude_src_idx[:, None]
     if exclude_src_owner is not None:
@@ -55,7 +60,7 @@ def radius_neighbors(
     neg_top, idx = torch.topk(-score, k, dim=-1)
     valid = neg_top > -float("inf")
     if dst_mask is not None:
-        valid &= dst_mask[:, None]
+        valid &= dst_mask[..., None]
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     return idx, valid
 
@@ -67,13 +72,14 @@ def dense_neighbors(
     dst_mask: Optional[torch.Tensor] = None,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """All-pairs connectivity: idx (Nd, Ns)."""
-    idx = torch.arange(n_src, device=device)[None, :].expand(n_dst, n_src)
+    """All-pairs connectivity: idx (..., Nd, Ns), the leading axes those of
+    the masks (``src_mask`` (..., Ns), ``dst_mask`` (..., Nd))."""
     valid = torch.ones((n_dst, n_src), dtype=torch.bool, device=device)
     if src_mask is not None:
-        valid &= src_mask[None, :]
+        valid = valid & src_mask[..., None, :]
     if dst_mask is not None:
-        valid &= dst_mask[:, None]
+        valid = valid & dst_mask[..., None]
+    idx = torch.arange(n_src, device=device).expand(valid.shape)
     return idx, valid
 
 

@@ -35,6 +35,13 @@ def _fill_extractor(fe: Dict, k: Dict) -> Dict:
     return fe
 
 
+def _fill_keypoint_kwargs(kk: Dict, k: Dict) -> Dict:
+    kk = dict(kk)
+    kk["feature_extractor_kwargs"] = _fill_extractor(kk["feature_extractor_kwargs"], k)
+    kk["tensor_field_kwargs"] = _fill_tensor_field(kk["tensor_field_kwargs"], k["k_field"])
+    return kk
+
+
 def build_score_model(
     model_name: str,
     model_kwargs: Dict,
@@ -46,7 +53,7 @@ def build_score_model(
     first valid point).  Parameters are uninitialised: load a checkpoint or
     call :func:`..weights.init_params`."""
     if model_name != "MultiscaleScoreModel":
-        raise NotImplementedError(f"{model_name} is not ported yet")
+        raise NotImplementedError(f"{model_name} (the sapien family's point-attentive model) is not ported yet")
     k = dict(DEFAULT_K)
     if k_defaults:
         k.update(k_defaults)
@@ -55,10 +62,13 @@ def build_score_model(
     sh["key_tensor_field_kwargs"] = _fill_tensor_field(sh["key_tensor_field_kwargs"], k["k_field"])
     key_kwargs = dict(mk["key_kwargs"])
     key_kwargs["feature_extractor_kwargs"] = _fill_extractor(key_kwargs["feature_extractor_kwargs"], k)
+    query_kwargs = mk["query_kwargs"]
+    if mk["query_model"] == "KeypointExtractor":
+        query_kwargs = _fill_keypoint_kwargs(query_kwargs, k)
     return MultiscaleScoreModel(
         query_model=mk["query_model"],
         score_head_kwargs=sh,
         key_kwargs=key_kwargs,
-        query_kwargs=mk["query_kwargs"],
+        query_kwargs=query_kwargs,
         edge_impl=edge_impl,
     )

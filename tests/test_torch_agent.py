@@ -1,5 +1,6 @@
-"""The port's agent end to end against the JAX agent, and the shipped pick
-checkpoints loading into the port with exact keys and shapes.
+"""The port's agent end to end against the JAX agent, the port's config
+copies, and the shipped pick and place checkpoints loading into the port with
+exact keys and shapes.
 
 End-to-end parity runs at temperature 0: the Langevin noise of the two
 frameworks cannot match, and at temperature 0 the noise term is exactly
@@ -104,25 +105,45 @@ CONFIG_FILES = ["train_configs.yaml", "task_configs.yaml", "score_model_configs.
 @pytest.mark.parametrize(
     "model,name",
     [pytest.param("pick_lowres", n, id=n) for n in CONFIG_FILES]
-    + [pytest.param(m, n, id=f"{m}-{n}") for m in ("pick_highres", "pick_ebm") for n in CONFIG_FILES],
+    + [pytest.param(m, n, id=f"{m}-{n}") for m in ("pick_highres", "pick_ebm", "place_lowres", "place_highres",
+                                                   "place_ebm") for n in CONFIG_FILES]
+    + [pytest.param("", n, id=n) for n in ("server.yaml", "preprocess.yaml")],
 )
 def test_port_config_copy_matches_reference(model, name):
-    """The port carries its own copy of the pick models' config directories."""
+    """The port carries its own copy of the pick and place models' config
+    directories and of the family's serving configs."""
     rel = Path("configs") / "panda_mug" / model / name
     port, ref = ROOT / "diffusion_edf_tpu_torch" / rel, ROOT / "diffusion_edf_tpu" / rel
     assert port.read_bytes() == ref.read_bytes()
 
 
-PICK_CHECKPOINTS = [
+def test_port_agent_yaml_points_at_port_configs():
+    """The port's ``agent.yaml`` differs from the JAX one only in the
+    ``configs_root_dir`` prefix, which names the port's config copies."""
+    rel = Path("configs") / "panda_mug" / "agent.yaml"
+    port = (ROOT / "diffusion_edf_tpu_torch" / rel).read_text().splitlines()
+    ref = (ROOT / "diffusion_edf_tpu" / rel).read_text().splitlines()
+    assert len(port) == len(ref)
+    changed = [(a, b) for a, b in zip(port, ref) if a != b]
+    assert len(changed) == 6
+    for a, b in changed:
+        assert a == b.replace("diffusion_edf_tpu/configs/", "diffusion_edf_tpu_torch/configs/")
+
+
+SHIPPED_CHECKPOINTS = [
     ("panda_mug/pick_lowres", 939),
     ("panda_mug/pick_highres", None),
     ("panda_mug/pick_ebm", None),
     ("panda_bottle/pick_lowres", None),
     ("panda_bowl/pick_lowres", None),
+    ("panda_mug/place_lowres", 1935),  # 998 of them under params/query_model
+    ("panda_mug/place_highres", 1935),
+    ("panda_mug/place_ebm", 1927),
+    ("panda_bowl/place_lowres", None),
 ]
 
 
-@pytest.mark.parametrize("name,n_keys", PICK_CHECKPOINTS)
+@pytest.mark.parametrize("name,n_keys", SHIPPED_CHECKPOINTS)
 def test_shipped_checkpoint_loads(name, n_keys):
     path = str(ROOT / "checkpoints" / f"{name}.npz")
     with np.load(path) as z:

@@ -48,9 +48,10 @@ def _config_dir(root, name, cfg):
     return str(d)
 
 
-def _bundles(root, name, ebm, init_seed):
-    """The port's bundle and the JAX bundle on the same parameters."""
-    cfg = _tiny_cfg(ebm)
+def _bundles(root, name, ebm, init_seed, cfg=None):
+    """The port's bundle and the JAX bundle on the same parameters (``cfg``:
+    another configuration than the tiny pick model's)."""
+    cfg = cfg or _tiny_cfg(ebm)
     tb = load_model_bundle(_config_dir(root, name, cfg), device="cpu", n_scene_pad=256, n_grasp_pad=96,
                            init_seed=init_seed)
     jb = JBundle(model=j_build(cfg["model_name"], cfg["model_kwargs"]), params=torch_to_jax_params(tb.model),

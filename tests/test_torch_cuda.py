@@ -35,6 +35,7 @@ def _ga(irreps, heads, fc, seed=0):
     ("8x0e+4x1e+2x2e", 2, (8, 16), 77),
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 1000),
     ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 1000),
+    ("64x0e+32x1e+16x2e", 4, (64, 32, 32), 52 * 192),  # the place models' keypoint fields
 ])
 def test_edge_kernel_matches_plain(irreps, heads, fc, rows):
     _need_cuda()
@@ -127,6 +128,8 @@ def _pattern_mask(mask, pattern):
     ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 70, 50),
     ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),
+    ("64x0e+32x1e+16x2e", 4, (64, 32, 32), 52, 192),  # keypoint fields: 52 query points, 4 scales of 48
+    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 32 * 52, 117),  # place key field: 32 seeds x 52 keypoints
 ])
 def test_edge_kernel_mask_patterns(irreps, heads, fc, nd, k, pattern):
     """The float32 edge kernel given a mask of the rows to compute (without
@@ -190,6 +193,8 @@ def _attention_inputs(m, nd, k, S, seed, masked_rows=(0,)):
     ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),  # rows of up to 117 valid slots: each spans tiles
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 300, 64),  # many rows, pieces of 8 lanes
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 5, 4),
+    ("64x0e+32x1e+16x2e", 4, (64, 32, 32), 52, 192),  # the place models' keypoint fields
+    ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 32 * 52, 117),  # place key field, 194,688 slots
 ])
 def test_fused_attention_matches_plain(irreps, heads, fc, nd, k, use_pre, use_post):
     _need_cuda()
@@ -215,6 +220,7 @@ def test_fused_attention_matches_plain(irreps, heads, fc, nd, k, use_pre, use_po
     ("8x0e+4x1e+2x2e", 2, (8, 16), 12, 11),
     ("32x0e+16x1e+8x2e", 4, (32, 16, 16), 70, 50),  # pieces of 8 lanes; K no multiple of 64
     ("64x0e+32x1e+16x2e", 4, (128, 128, 64), 64, 117),
+    ("64x0e+32x1e+16x2e", 4, (64, 32, 32), 52, 192),  # keypoint fields
 ])
 def test_fused_attention_mask_patterns(irreps, heads, fc, nd, k, pattern):
     """Masks that stress the compaction of the valid slots into tiles of 64:

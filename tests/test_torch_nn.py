@@ -72,7 +72,7 @@ def test_rotate_irreps(irreps):
     f = rng.normal(size=(5, Irreps(irreps).dim)).astype(np.float32)
     q = _quats(rng, 3)
     _close(jwig.rotate_irreps(Irreps(irreps), jnp.asarray(f), jnp.asarray(q)),
-           twig.rotate_irreps(irreps, t(f), t(q)))
+           twig.rotate_irreps(irreps, t(f)[None], t(q)[None])[0])  # one request
 
 
 def test_so3_ops():

@@ -1,8 +1,10 @@
 """Where one Langevin step of the PyTorch port spends its time on the GPU.
 
-    python3 tools/torch_step_profile.py [--steps 10] [--seeds 32] [--edge-impl fused]
+    python3 tools/torch_step_profile.py [--steps 10] [--seeds 32] [--edge-impl fused] [--model place_lowres]
 
-Loads the pick_lowres checkpoint, extracts the scene once, then profiles
+Loads the ``--model`` checkpoint (``pick_lowres``, or ``place_lowres`` on the
+mug-in-gripper cloud of ``chip_smoke.place_clouds``, whose query is the
+keypoint extractor's 52 points), extracts scene and grasp once, then profiles
 ``--steps`` score evaluations (``chip_smoke.step_profile``, the one profiler
 of the port) under the chosen ``edge_impl`` and prints: wall time
 per step, device busy time per step (sum of kernel times), the device's idle
@@ -31,16 +33,19 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--seeds", type=int, default=32)
     ap.add_argument("--edge-impl", default=None, choices=[None, *cs.EDGE_IMPLS])
+    ap.add_argument("--model", default="pick_lowres", choices=["pick_lowres", "place_lowres"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: needs a CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     print(f"card: {cs.card_line()}")
-    bundle = load_model_bundle(cs.CONFIG, cs.CHECKPOINT, device=dev, edge_impl=args.edge_impl)
+    config = os.path.join(cs.CONFIGS, args.model)
+    bundle = load_model_bundle(config, os.path.join(cs.CHECKPOINTS, args.model + ".npz"), device=dev,
+                               edge_impl=args.edge_impl)
     model = bundle.model
-    train_cfg, _, _ = load_configs(cs.CONFIG)
-    scene, grasp = cs.scene_clouds()
+    train_cfg, _, _ = load_configs(config)
+    scene, grasp = cs.place_clouds() if args.model.startswith("place") else cs.scene_clouds()
     agent = DiffusionEdfAgent([bundle], train_cfg["preprocess_config"], cs.UNPROCESS, preprocess_seed=0)
     scene_p, grasp_p = agent._prep(scene, grasp)
     T = torch.as_tensor(cs.seed_poses(args.seeds), device=dev)
@@ -51,7 +56,8 @@ def main() -> int:
         query = model.get_query_pcd(pad_pointcloud(grasp_p, bundle.n_grasp_pad, dev))
         wall, busy, n_kernels, by_name = cs.step_profile(model, T, key_ms, query, time_vec, steps=args.steps,
                                                          wall_steps=args.steps)
-    print(f"steps {args.steps} seeds {args.seeds} edge_impl {args.edge_impl or 'default'}")
+    print(f"{args.model}: steps {args.steps} seeds {args.seeds} query points {query.n} "
+          f"({int(query.mask.sum())} kept) edge_impl {args.edge_impl or 'default'}")
     print(f"wall per step {wall:.3f} ms, device busy per step {busy:.3f} ms, "
           f"device idle share {1 - busy / wall:.3f}, kernels per step {n_kernels:.0f}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
