@@ -72,7 +72,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    request's Langevin steps, ``sample_batch`` of two requests against two
    ``sample`` calls, the p50 latency of a served place request and the wall
    time of four batched requests against four sequential ones;
-10. one JSON line listing each kernel, then the card line, then the result
+10. training on the card (``DiffusionEdfTrainer``, ``device="cuda"``) on 8
+   synthetic mug demos, from the shipped checkpoints: (a) one ``pick_lowres``
+   step at full width on the card and on the CPU on the same draws and
+   weights, dropout off, loss and every gradient within ``TRAIN_GATES``
+   (and the CPU step in float64 beside them, as a witness of float32's
+   spread);
+   (b) 200 ``pick_lowres`` steps with dropout on: every loss and gradient
+   norm finite, the loss of 8 fixed evaluation batches at most
+   ``EVAL_RISE_GATE`` times its start, ms a step, device busy and idle share
+   and kernels a step from ``torch.profiler`` over 10 more steps, peak
+   memory, and no launch of K1, K2 or K3 while training (autograd routes
+   every attention to the plain path); (c) the ``pick_ebm`` critic, one step
+   card against CPU, then 20 steps (second order through ``ebm_score``, rank
+   loss): finite, pair accuracy, ms a step, peak memory, no launch; (d) the
+   trained ``pick_lowres`` weights exported, loaded by ``load_model_bundle``
+   and sampled on the default ``edge_impl`` (K1, once a step) and on
+   ``"plain"`` with the same seeds and noise, within ``POSE_GATE``; (e) the
+   training command line for one epoch on two demos, as a subprocess, whose
+   checkpoint ``restore`` reads;
+11. one JSON line listing each kernel, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.  A kernel's own keys hold the pick
    tensor field and the launches of the pick path it was first measured on;
    ``by_shape`` holds K1's and K3's records at the pick and place key fields
@@ -84,6 +103,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -151,6 +171,14 @@ SERVER_REQUEST = dict(  # pick_diffusion_configs of configs/panda_mug/server.yam
     log_t_schedule=True,
 )
 EDGE_IMPLS = ("plain", "kernel", "kernel_bf16", "fused")
+TRAIN_DEMOS, TRAIN_STEPS, CRITIC_STEPS = 8, 200, 20
+# one train step of the same draws on the card and on the CPU, dropout off: (loss, relative; each gradient, of its
+# flax key's max |grad|).  Float32 in another summation order (cuBLAS and the card's atomic scatter-adds against
+# the CPU's BLAS) through the whole model and its backward.  Seen on an H100: pick_lowres 3.2e-6 and 1.0e-3 / 2.9e-3
+# (two runs; at the coarsest scale's LayerNorm bias, a sum over 4 points that cancels; there the card's float32
+# gradient sits 1.3e-3 from a float64 CPU run, the CPU's 3.4e-4); pick_ebm 6.0e-8 and 2.2e-5
+TRAIN_GATES = (1e-4, 1e-2)
+EVAL_RISE_GATE = 1.2  # the evaluation loss after 200 steps from the shipped checkpoint, of the loss before
 PLACE_MODELS = ("place_lowres", "place_highres", "place_ebm")
 
 
@@ -620,6 +648,255 @@ def check_wire_trajectory(label, traj, n_steps, n_seeds):
                            "in metres")
 
 
+def train_profile(tr, steps: int = 10):
+    """(device-busy ms, kernels) per train step from ``torch.profiler`` over
+    ``steps`` steps (``step_profile``'s method); the steps train."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            tr.step(tr.batches[i % len(tr.batches)])
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time / steps / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log("  device ms a step by kernel: " + "; ".join(f"{t:.2f} {n[:70]}" for n, t in top))
+    return sum(e.device_time for e in events) / steps / 1e3, len(events) / steps
+
+
+def card_against_cpu(label, tr, cpu_tr, inputs, witness: bool):
+    """One step of the same drawn inputs and weights on the card and on the
+    CPU, in float32, dropout off: the loss and every gradient within
+    ``TRAIN_GATES``.  ``witness``: also the CPU step in float64, to show how
+    far each float32 gradient sits from it.  Returns the numbers."""
+    import torch
+
+    from diffusion_edf_tpu_torch.weights import flat_arrays
+
+    def run(t_, inp):
+        t_.model.eval()
+        loss, _, grads = t_.loss_and_grads(inp)
+        return float(loss.detach()), flat_arrays(t_.model, grads)
+
+    l_card, g_card = run(tr, inputs)
+    l_cpu, g_cpu = run(cpu_tr, inputs.to("cpu"))
+    pairs = [("card-CPU", g_card, g_cpu)]
+    if witness:
+        cpu_tr.model.double()
+        l_64, g_64 = run(cpu_tr, inputs.to("cpu", torch.float64))
+        cpu_tr.model.float()
+        pairs += [("card-float64", g_card, g_64), ("CPU-float64", g_cpu, g_64)]
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = {}
+    for name, a, b in pairs:
+        for k, g in b.items():
+            if not (np.isfinite(a[k]).all() and np.isfinite(g).all()):
+                raise SmokeFailure(f"{label}: the gradient of {k} is not finite")
+            r = float(np.abs(a[k] - g).max()) / (float(np.abs(g).max()) or 1.0)
+            if r >= worst.get(name, (0.0, None))[0]:
+                worst[name] = (r, k)
+    rec = dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=loss_err, keys=len(g_cpu),
+               **{f"grad_{n}": w for n, (w, _) in worst.items()}, grad_card_cpu_key=worst["card-CPU"][1])
+    if witness:
+        rec["loss_f64"] = l_64
+    loss_gate, grad_gate = TRAIN_GATES
+    log(f"{label}: one step card against CPU (same draws, dropout off): loss {l_card:.7g} against {l_cpu:.7g} "
+        f"({loss_err:.3g} relative, gate {loss_gate}{f'; float64 {l_64:.7g}' if witness else ''}); worst gradient "
+        f"of its key's max |grad|: " + ", ".join(f"{n} {w:.3g} at {k}" for n, (w, k) in worst.items())
+        + f" (gate {grad_gate} on card-CPU); {len(g_cpu)} keys")
+    if not (loss_err <= loss_gate and worst["card-CPU"][0] <= grad_gate):
+        raise SmokeFailure(f"{label}: the card's train step differs from the CPU's")
+    return rec
+
+
+def train_phase(dev, scene, grasp) -> dict:
+    """Phase 10, training on the card (see the module docstring); returns
+    its numbers."""
+    import torch
+
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, load_model_bundle
+    from diffusion_edf_tpu_torch.nn.attention import GraphAttention
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer, load_configs
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SmokeFailure("TF32 matmuls are on: the card's float32 train step cannot be held to the CPU's")
+    out_dir = os.path.join(ROOT, "build", "train_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    demos = make_synthetic_dataset(n_demos=TRAIN_DEMOS, seed=0)
+    summary = {}
+
+    def trainers(name):
+        kw = dict(n_scene_pad=2048, n_grasp_pad=512, seed=0)
+        tr = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(out_dir, name), device=dev, **kw)
+        tr.init(demos, checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
+        cpu = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(out_dir, name + "_cpu"),
+                                  device="cpu", **kw)
+        cpu.init(demos[:1], checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
+        return tr, cpu
+
+    # ---- 10a: pick_lowres, one step card against CPU ----
+    t0 = time.perf_counter()
+    tr, cpu = trainers("pick_lowres")
+    eval_inputs = [tr.draw_step(b) for b in tr.batches]  # fixed draws, one per demo
+    summary["pick_lowres_card_vs_cpu"] = card_against_cpu("pick_lowres", tr, cpu, eval_inputs[0], witness=True)
+    del cpu
+    log(f"10a: {time.perf_counter() - t0:.1f} s")
+
+    # ---- 10b: 200 steps with dropout on ----
+    def eval_loss():
+        return float(np.mean([tr.evaluate(x)["loss/train"] for x in eval_inputs]))
+
+    before = eval_loss()
+    reset_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    epoch_s, stats = [], []
+    t0 = time.perf_counter()
+    while tr.steps < TRAIN_STEPS:
+        t = time.perf_counter()
+        stats.append(tr.train_epoch())
+        epoch_s.append(time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    busy, n_kernels = train_profile(tr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    during = counters()
+    with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f][-TRAIN_STEPS:]
+    finite = all(np.isfinite(r["loss/train"]) and np.isfinite(r["grad_norm"]) for r in rows)
+    after = eval_loss()
+    per_step = np.asarray(epoch_s) / len(tr.batches) * 1e3
+    ms = float(np.median(per_step))
+    summary["pick_lowres_train"] = dict(
+        steps=tr.steps, ms_per_step=ms, ms_per_step_mean=wall * 1e3 / TRAIN_STEPS, busy_ms=busy,
+        idle_share=1 - busy / ms, kernels_per_step=n_kernels, peak_gb=peak / 1e9, peak_over_base_gb=(peak - base) / 1e9,
+        eval_loss_before=before, eval_loss_after=after, launches=during,
+        loss_first_epoch=float(np.mean([r["loss/train"] for r in rows[:8]])),
+        loss_last_epoch=float(np.mean([r["loss/train"] for r in rows[-8:]])))
+    log(f"10b: pick_lowres {tr.steps} train steps (dropout on) in {wall:.1f} s: {ms:.1f} ms a step (median epoch; mean "
+        f"{wall * 1e3 / TRAIN_STEPS:.1f}); device busy {busy:.2f} ms a step, idle share {1 - busy / ms:.3f}, "
+        f"{n_kernels:.0f} kernels a step; peak memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the "
+        f"{base / 1e9:.2f} GB before); eval loss (8 fixed batches, dropout off) {before:.4f} -> {after:.4f} "
+        f"(gate x{EVAL_RISE_GATE}); train loss first epoch {summary['pick_lowres_train']['loss_first_epoch']:.4f}, "
+        f"last {summary['pick_lowres_train']['loss_last_epoch']:.4f}; launches during training {during}")
+    if not finite:
+        raise SmokeFailure("10b: a train loss or gradient norm is not finite")
+    if sum(during.values()) != 0:
+        raise SmokeFailure("10b: a kernel launched during training")
+    if not after <= EVAL_RISE_GATE * before:
+        raise SmokeFailure("10b: the evaluation loss rose during training")
+
+    # ---- 10c: the pick_ebm critic, second order, with the rank loss ----
+    t0 = time.perf_counter()
+    ctr, cpu = trainers("pick_ebm")
+    summary["pick_ebm_card_vs_cpu"] = card_against_cpu("pick_ebm", ctr, cpu, ctr.draw_step(ctr.batches[0]),
+                                                       witness=False)
+    del cpu
+    reset_counters()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cstats, step_s = [], []
+    for i in range(CRITIC_STEPS):
+        t = time.perf_counter()
+        cstats.append(ctr.step(ctr.batches[i % len(ctr.batches)]))
+        step_s.append(time.perf_counter() - t)
+    busy_c, n_kernels_c = train_profile(ctr, steps=5)
+    peak = torch.cuda.max_memory_allocated()
+    during = counters()
+    ms_c = float(np.median(step_s)) * 1e3
+    finite = all(np.isfinite(v) for st in cstats for v in st.values())
+    acc = [st["rank/pair_acc"] for st in cstats]
+    summary["pick_ebm_train"] = dict(
+        steps=CRITIC_STEPS, ms_per_step=ms_c, busy_ms=busy_c, idle_share=1 - busy_c / ms_c, kernels_per_step=n_kernels_c,
+        peak_gb=peak / 1e9, peak_over_base_gb=(peak - base) / 1e9, pair_acc_mean=float(np.mean(acc)),
+        pair_acc_last5=float(np.mean(acc[-5:])), launches=during)
+    log(f"10c: pick_ebm {CRITIC_STEPS} train steps (dropout on, second order): {ms_c:.1f} ms a step (median); device busy "
+        f"{busy_c:.2f} ms, idle share {1 - busy_c / ms_c:.3f}, {n_kernels_c:.0f} kernels a step; peak memory "
+        f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} above the {base / 1e9:.2f} GB before); rank/pair_acc mean "
+        f"{np.mean(acc):.3f} (last 5 {np.mean(acc[-5:]):.3f}); loss first {cstats[0]['loss/train']:.4f} last "
+        f"{cstats[-1]['loss/train']:.4f}; launches {during}; {time.perf_counter() - t0:.1f} s")
+    if not finite:
+        raise SmokeFailure("10c: a critic loss or gradient is not finite")
+    if sum(during.values()) != 0:
+        raise SmokeFailure("10c: a kernel launched during the critic's training")
+    del ctr
+
+    # ---- 10d: the trained weights served on K1 ----
+    t0 = time.perf_counter()
+    exported = tr.export(os.path.join(out_dir, "pick_lowres_trained.npz"))
+    preprocess = load_configs(CONFIG)[0]["preprocess_config"]
+    bundle = load_model_bundle(CONFIG, exported, device=dev)
+    n_extract = sum(isinstance(m, GraphAttention) for m in bundle.model.key_model.modules())
+    Ts_init = seed_poses(N_SEEDS)
+
+    def rollout():
+        agent = DiffusionEdfAgent([bundle], preprocess, UNPROCESS, preprocess_seed=0)
+        return agent.sample(scene, grasp, Ts_init, generator=torch.Generator(device=dev).manual_seed(1), **SCHEDULE)
+
+    reset_counters()
+    traj_k, _, _, info_k = rollout()
+    launched = counters()
+    bundle.model.set_edge_impl("plain")
+    traj_p, _, _, _ = rollout()
+    steps = info_k["steps"][0]
+    drift = float(np.abs(traj_k[-1] - traj_p[-1]).max())
+    summary["trained_rollout"] = dict(drift=drift, launches=launched, steps=steps, extractor_attentions=n_extract)
+    log(f"10d: trained pick_lowres exported ({os.path.getsize(exported) / 1e6:.1f} MB), {N_SEEDS} seeds x {steps} steps "
+        f"on kernel against plain: final-pose drift {drift:.3g} (gate {POSE_GATE}); launches {launched} "
+        f"({n_extract} extractor attentions + one a step); {time.perf_counter() - t0:.1f} s")
+    if not (np.isfinite(traj_k).all() and drift <= POSE_GATE):
+        raise SmokeFailure("10d: the trained weights' kernel rollout drifts from the plain rollout")
+    if launched["edge_kernel"] != steps + n_extract:
+        raise SmokeFailure("10d: K1 did not launch once a step")
+    del tr, bundle
+    torch.cuda.empty_cache()
+
+    # ---- 10e: the training command line ----
+    t0 = time.perf_counter()
+    cli_dir = os.path.join(out_dir, "cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    cmd = [sys.executable, "-m", "diffusion_edf_tpu_torch.train.cli", "--configs-root-dir", CONFIG,
+           "--synthetic-demos", "2", "--max-epochs", "1", "--log-name", "smoke"]
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(cmd, cwd=cli_dir, env=env, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.strip().splitlines()[-3:]:
+        log(f"  cli: {line}")
+    ckpt = os.path.join(cli_dir, "runs", "smoke", "checkpoint", "1.npz")
+    if proc.returncode != 0 or not os.path.exists(ckpt):
+        log(proc.stderr[-3000:])
+        raise SmokeFailure(f"10e: the training CLI exited {proc.returncode} or wrote no checkpoint")
+    check = DiffusionEdfTrainer(CONFIG, log_dir=os.path.join(out_dir, "cli_restore"), device=dev)
+    check.init(make_synthetic_dataset(n_demos=2, seed=0))
+    check.restore(ckpt)
+    summary["cli"] = dict(seconds=time.perf_counter() - t0, epoch=check.epoch, steps=check.steps)
+    log(f"10e: the training CLI exited 0 in {time.perf_counter() - t0:.1f} s; restore read its checkpoint at epoch "
+        f"{check.epoch}, step {check.steps}")
+    if (check.epoch, check.steps) != (1, 2):
+        raise SmokeFailure("10e: the CLI's checkpoint restored the wrong epoch or step count")
+    return summary
+
+
+def reset_counters() -> None:
+    from diffusion_edf_tpu_torch.nn import edge_kernel as ek
+    from diffusion_edf_tpu_torch.nn import fused_attention as fa
+
+    ek.launches = ek.launches_bf16 = fa.launches = 0
+
+
+def counters() -> dict:
+    from diffusion_edf_tpu_torch.nn import edge_kernel as ek
+    from diffusion_edf_tpu_torch.nn import fused_attention as fa
+
+    return dict(edge_kernel=ek.launches, edge_kernel_bf16=ek.launches_bf16, fused_attention=fa.launches)
+
+
 def main() -> int:
     try:
         return run()
@@ -641,12 +918,6 @@ def run() -> int:
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
     from diffusion_edf_tpu_torch.train.data import pad_pointcloud
     from diffusion_edf_tpu_torch.train.trainer import load_configs
-
-    def reset_counters():
-        ek.launches = ek.launches_bf16 = fa.launches = 0
-
-    def counters():
-        return dict(edge_kernel=ek.launches, edge_kernel_bf16=ek.launches_bf16, fused_attention=fa.launches)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1202,6 +1473,11 @@ def run() -> int:
         f"(gate 1e-4)")
     if not batch_err <= 1e-4:
         raise SmokeFailure("sample_batch differs from sample()")
+
+    # ---- phase 10: training on the card ----
+    t = time.perf_counter()
+    train = train_phase(dev, scene, grasp)
+    log(f"phase 10: {time.perf_counter() - t:.1f} s; train summary {json.dumps(train)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     src = "diffusion_edf_tpu_torch/csrc/"

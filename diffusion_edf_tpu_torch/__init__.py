@@ -6,9 +6,12 @@ its counterpart's file layout and names, and the shipped ``.npz``
 checkpoints load unchanged (:mod:`.weights`).  This package never imports
 jax, flax or the JAX package.
 
-Slice 1 covers one ``pick_lowres`` cascade stage of ``agent.sample`` at
-inference; the per-edge segment of every ``GraphAttention`` runs through the
-hand-written CUDA kernel in ``csrc/edge_kernel.cu`` (:mod:`.nn.edge_kernel`).
+It covers the pick and place requests (``agent``: the cascades and their
+EBM critics), serving (``serve``) and training (``train.trainer``, the
+command line ``train.cli``).  At inference the per-edge segment of every
+``GraphAttention`` runs through the hand-written CUDA kernels of ``csrc/``
+(:mod:`.nn.edge_kernel`, :mod:`.nn.fused_attention`); training runs the
+plain PyTorch path, since the kernels have no backward.
 """
 import torch
 

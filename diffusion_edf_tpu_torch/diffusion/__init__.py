@@ -1,1 +1,1 @@
-"""Annealed Langevin sampling on SE(3)."""
+"""Annealed Langevin sampling on SE(3) and the training-time diffusion."""

@@ -20,7 +20,13 @@ from ..geom.sh import spherical_harmonics
 from ..nn.radial import GaussianRadialBasis, SinusoidalPositionEmbeddings, soft_square_cutoff_2
 from ..ops.neighbors import dense_neighbors, radius_neighbors
 
-__all__ = ["RadiusEdgeEncoder", "InfiniteEdgeEncoder", "cutoff_sh"]
+__all__ = ["RadiusEdgeEncoder", "InfiniteEdgeEncoder", "cutoff_sh", "st_clamp_min"]
+
+
+def st_clamp_min(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``max(x, eps)`` forward with the identity as its gradient (straight
+    through)."""
+    return x + (torch.clamp(x, min=eps) - x).detach()
 
 
 def cutoff_sh(irreps_sh: Irreps, sh: torch.Tensor, edge_cutoff: Optional[torch.Tensor],
@@ -62,7 +68,7 @@ class _EncoderCore(nn.Module):
             edge_cutoff = soft_square_cutoff_2(length, self.edge_cutoff_ranges)
             # log(c + eps) as the pre-attention logit (bounded derivatives)
             log_cutoff = torch.log(edge_cutoff + self.log_eps)
-            edge_cutoff = torch.clamp(edge_cutoff, min=self.cutoff_eps)
+            edge_cutoff = st_clamp_min(edge_cutoff, self.cutoff_eps)
         elif self.fill_edge_weights is not None:
             edge_cutoff = torch.full_like(length, self.fill_edge_weights)
             log_cutoff = torch.full_like(length, math.log(self.fill_edge_weights))

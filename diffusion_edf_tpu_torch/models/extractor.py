@@ -1,6 +1,7 @@
 """Multiscale UNet point-cloud feature extractor (counterpart of the JAX
-package's ``models/extractor.py::UnetFeatureExtractor``, inference with
-deterministic FPS).
+package's ``models/extractor.py::UnetFeatureExtractor``, deterministic FPS;
+``alpha_drop`` / ``proj_drop``, per scale or one for all, act in ``train()``
+mode).
 
 Per scale n the down path FPS-pools the cloud (``M_n = ceil(ratio * M_{n-1})``
 of the padded count), projects, runs a bipartite Equiformer block over the
@@ -62,13 +63,14 @@ class _ScaleLayer(nn.Module):
     """Radial basis + Equiformer block over a fixed edge structure."""
 
     def __init__(self, irreps_src, irreps_dst, irreps_sh, num_heads, fc_neurons, radius,
-                 irreps_mlp_mid=3, irreps_head=None):
+                 irreps_mlp_mid=3, drop=(0.1, 0.0), irreps_head=None):
+        """``drop``: ``(alpha_drop, proj_drop)``."""
         super().__init__()
         self.radial = GaussianRadialBasisFiniteCutoff(num_basis=fc_neurons[0], cutoff=0.99 * radius)
         self.gnn = EquiformerBlock(
             irreps_src=irreps_src, irreps_dst=irreps_dst, irreps_edge_attr=irreps_sh,
             num_heads=num_heads, fc_neurons=tuple(fc_neurons), irreps_head=irreps_head,
-            irreps_mlp_mid=irreps_mlp_mid, use_edge_logits=False,
+            irreps_mlp_mid=irreps_mlp_mid, use_edge_logits=False, alpha_drop=drop[0], proj_drop=drop[1],
         )
 
     def forward(self, src: FeaturedPoints, dst: FeaturedPoints, edges: GraphEdges) -> FeaturedPoints:
@@ -77,7 +79,7 @@ class _ScaleLayer(nn.Module):
 
 class _DownPath(nn.Module):
     def __init__(self, irreps_input, emb, irreps_edge_attr, num_heads, fc_neurons, n_layers,
-                 pool_ratio, radii, k_pool, k_self, mlp_mid):
+                 pool_ratio, radii, k_pool, k_self, mlp_mid, drop):
         super().__init__()
         self.emb, self.sh = emb, [Irreps(i) for i in irreps_edge_attr]
         self.n_layers, self.pool_ratio, self.radii = n_layers, pool_ratio, radii
@@ -88,10 +90,10 @@ class _DownPath(nn.Module):
             prev = emb[max(n - 1, 0)]
             self.add_module(f"pool_proj_{n}", ProjectIfMismatch(prev, emb[n]))
             self.add_module(f"pool_layer_{n}", _ScaleLayer(
-                prev, emb[n], self.sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n]))
+                prev, emb[n], self.sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n], drop[n]))
             for i in range(n_layers[n] - 1):
                 self.add_module(f"self_layer_{n}_{i}", _ScaleLayer(
-                    emb[n], emb[n], self.sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n]))
+                    emb[n], emb[n], self.sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n], drop[n]))
 
     def forward(self, pcd: FeaturedPoints):
         f = self.input_emb(pcd.f) if hasattr(self, "input_emb") else pcd.f
@@ -137,7 +139,8 @@ class UnetFeatureExtractor(nn.Module):
         k_self: Sequence[int] = (32, 32, 32, 32),
         k_up: Sequence[int] = (12, 12, 12, 12),
         irreps_mlp_mid: Union[int, Sequence[int]] = 3,
-        **_inference_ignored,  # alpha_drop / proj_drop: dropout is training-only
+        alpha_drop: Union[float, Sequence[float]] = 0.1,
+        proj_drop: Union[float, Sequence[float]] = 0.0,
     ):
         super().__init__()
         n_scales = len(irreps_emb)
@@ -145,19 +148,20 @@ class UnetFeatureExtractor(nn.Module):
         sh = self.sh = [Irreps(i) for i in irreps_edge_attr]
         radii = self.radii = resolve_radii(radius, pool_ratio)
         mlp_mid = _per_scale(irreps_mlp_mid, n_scales)
+        drop = list(zip(_per_scale(alpha_drop, n_scales), _per_scale(proj_drop, n_scales)))
         self.n_layers, self.n_layers_midstream, self.k_up = list(n_layers), n_layers_midstream, list(k_up)
         self.down = _DownPath(irreps_input, emb, irreps_edge_attr, num_heads, fc_neurons, n_layers,
-                              pool_ratio, radii, k_pool, k_self, mlp_mid)
+                              pool_ratio, radii, k_pool, k_self, mlp_mid, drop)
         for i in range(n_layers_midstream):
             self.add_module(f"mid_layer_{i}", _ScaleLayer(
-                emb[-1], emb[-1], sh[-1], num_heads[-1], fc_neurons[-1], radii[-1], mlp_mid[-1]))
+                emb[-1], emb[-1], sh[-1], num_heads[-1], fc_neurons[-1], radii[-1], mlp_mid[-1], drop[-1]))
         for n in range(n_scales - 1, -1, -1):
             for i in range(n_layers[n] - 1):
                 self.add_module(f"up_self_layer_{n}_{i}", _ScaleLayer(
-                    emb[n], emb[n], sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n]))
+                    emb[n], emb[n], sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n], drop[n]))
             if n > 0:
                 self.add_module(f"unpool_layer_{n}", _ScaleLayer(
-                    emb[n], emb[n - 1], sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n],
+                    emb[n], emb[n - 1], sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n], drop[n],
                     irreps_head=multiply_irreps(emb[n - 1], 1.0 / num_heads[n], strict=True)))
         for n in range(n_scales):
             self.add_module(f"project_out_{n}", ProjectIfMismatch(emb[n], Irreps(irreps_output)))

@@ -14,7 +14,7 @@ of field and moved query features as the energy of each pose.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +28,7 @@ from ..nn.tp_modules import SeparableFCTP
 from ..nn.util import constant
 from .tensor_field import MultiscaleTensorField
 
-__all__ = ["ScoreModelHead", "EbmScoreModelHead", "quat_L", "QUAT_L_INDICES", "QUAT_L_FACTOR"]
+__all__ = ["ScoreModelHead", "EbmScoreModelHead", "ebm_score", "quat_L", "QUAT_L_INDICES", "QUAT_L_FACTOR"]
 
 # dq = L(q) @ ang with L[i, a] = q[QUAT_L_INDICES[i][a]] * QUAT_L_FACTOR[i][a]
 QUAT_L_INDICES = ((1, 2, 3), (0, 3, 2), (3, 0, 1), (2, 1, 0))
@@ -169,3 +169,21 @@ class EbmScoreModelHead(_FieldHead):
         diff2 = torch.square(key_features - f_t_flat).sum(dim=-1) * (1.0 / self.irreps_key.dim)
         qw = torch.where(query_pcd.mask, query_pcd.w, torch.zeros_like(query_pcd.w))
         return torch.einsum("rq,rtq->rt", qw, diff2.reshape(r, nT, nQ))
+
+
+def ebm_score(apply_energy: Callable[[torch.Tensor], torch.Tensor], Ts: torch.Tensor, ang_mult: float,
+              lin_mult: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(ang, lin)`` score of an energy-based head: the gradient of ``-E``
+    with respect to the poses ``Ts`` (..., 7), mapped through the quaternion
+    L-matrix (angular) and into the body frame (linear).  While grad mode is
+    on the gradient keeps its graph, so a loss on the score backpropagates to
+    the parameters (second order); under ``torch.no_grad()`` it is computed
+    all the same and returned detached."""
+    keep_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        T = Ts if Ts.requires_grad else Ts.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(-apply_energy(T).sum(), T, create_graph=keep_graph)
+    q = Ts[..., :4]
+    ang = torch.einsum("...ia,...i->...a", quat_L(q), grad[..., :4]) * ang_mult
+    lin = so3.quaternion_apply(so3.quaternion_invert(q), grad[..., 4:]) * lin_mult
+    return ang, lin

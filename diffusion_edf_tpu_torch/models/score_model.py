@@ -1,8 +1,13 @@
-"""Score model assembly (counterpart of the JAX package's
-``models/score_model.py::MultiscaleScoreModel``, inference methods): key =
-UNet extractor, query = static keypoints (pick models) or the keypoint
-extractor (place models), head = the denoising score head or, with ``ebm:
-true`` in the head's config, the energy-based critic head.
+"""Score model assembly and the training loss (counterpart of the JAX
+package's ``models/score_model.py``: ``MultiscaleScoreModel`` and
+``train_loss``): key = UNet extractor, query = static keypoints (pick
+models) or the keypoint extractor (place models), head = the denoising score
+head or, with ``ebm: true`` in the head's config, the energy-based critic
+head, whose score is the gradient of its energy (``ebm_score``).
+
+A model is built in ``eval()`` mode, which is deterministic (the JAX
+modules' ``deterministic=True``); ``train()`` turns dropout on, with the
+keep masks drawn from the generator given to ``set_dropout_generator``.
 
 ``score`` and ``energy`` take one request (poses (nT, 7), the clouds as
 ``get_key_pcd_multiscale`` / ``get_query_pcd`` return them) or R requests
@@ -20,9 +25,9 @@ from ..geom.irreps import Irreps
 from ..nn.attention import EDGE_IMPLS, GraphAttention
 from .extractor import UnetFeatureExtractor
 from .keypoint import KeypointExtractor, StaticKeypointModel
-from .score_head import EbmScoreModelHead, ScoreModelHead
+from .score_head import EbmScoreModelHead, ScoreModelHead, ebm_score
 
-__all__ = ["MultiscaleScoreModel"]
+__all__ = ["MultiscaleScoreModel", "train_loss"]
 
 
 def _build_query(query_model: str, query_kwargs: Dict) -> Tuple[nn.Module, Irreps]:
@@ -82,12 +87,19 @@ class MultiscaleScoreModel(nn.Module):
         )
         assert not kw, f"Unconsumed score_head_kwargs: {kw}"
         self.set_edge_impl(edge_impl)
+        self.eval()
 
     def set_edge_impl(self, edge_impl: Optional[str]) -> None:
         assert edge_impl is None or edge_impl in EDGE_IMPLS, edge_impl
         for m in self.modules():
             if isinstance(m, GraphAttention):
                 m.edge_impl = edge_impl
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every dropout of the model draws its keep masks from."""
+        for m in self.modules():
+            if hasattr(m, "dropout_generator"):
+                m.dropout_generator = generator
 
     def get_key_pcd_multiscale(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
         return self.key_model(pcd)
@@ -96,12 +108,14 @@ class MultiscaleScoreModel(nn.Module):
         return self.query_model(pcd)
 
     def score(self, Ts, key_pcd_multiscale, query_pcd, time) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(ang, lin)``, each (nT, 3) for one request, (R, nT, 3) for R."""
-        if self.use_ebm:
-            raise NotImplementedError("the score of an EBM model (the gradient of its energy, ebm_score) "
-                                      "comes with the training port; call energy()")
+        """``(ang, lin)``, each (nT, 3) for one request, (R, nT, 3) for R.  An
+        EBM model's score is :func:`ebm_score` of its energy."""
         Ts, key_ms, query, time, one = _stacked(Ts, key_pcd_multiscale, query_pcd, time)
-        ang, lin = self.score_head(Ts, key_ms, query, time)
+        if self.use_ebm:
+            ang, lin = ebm_score(lambda T: self.score_head(T, key_ms, query, time), Ts,
+                                 ang_mult=self.ang_mult, lin_mult=self.lin_mult)
+        else:
+            ang, lin = self.score_head(Ts, key_ms, query, time)
         return (ang[0], lin[0]) if one else (ang, lin)
 
     def energy(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
@@ -113,3 +127,45 @@ class MultiscaleScoreModel(nn.Module):
 
     def forward(self, Ts, key_pcd, query_pcd, time):
         return self.score(Ts, self.get_key_pcd_multiscale(key_pcd), self.get_query_pcd(query_pcd), time)
+
+
+def train_loss(
+    ang_score: torch.Tensor,
+    lin_score: torch.Tensor,
+    target_ang_score: torch.Tensor,
+    target_lin_score: torch.Tensor,
+    time: torch.Tensor,
+    ang_mult: float,
+    lin_mult: float,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Denoising score matching loss and its diagnostics: the targets scaled
+    by ``sqrt(t) * mult`` (an O(1) regression target at every noise level)
+    against the scores, each (N, 3)."""
+    t = torch.sqrt(time)[..., None]
+    target_ang = target_ang_score * t * ang_mult
+    target_lin = target_lin_score * t * lin_mult
+    ang_loss = torch.mean(torch.sum(torch.square(target_ang - ang_score), dim=-1))
+    lin_loss = torch.mean(torch.sum(torch.square(target_lin - lin_score), dim=-1))
+    loss = ang_loss + lin_loss
+
+    def _safe_norm(x):
+        return torch.linalg.norm(x + 1e-20, dim=-1)
+
+    tn_a, tn_l = _safe_norm(target_ang), _safe_norm(target_lin)
+    sn_a, sn_l = _safe_norm(ang_score), _safe_norm(lin_score)
+    dp_a = torch.sum(ang_score * target_ang, dim=-1)
+    dp_l = torch.sum(lin_score * target_lin, dim=-1)
+    stats = {
+        "loss/train": loss,
+        "loss/angular": ang_loss,
+        "loss/linear": lin_loss,
+        "norm/target_ang": torch.mean(tn_a),
+        "norm/target_lin": torch.mean(tn_l),
+        "norm/inferred_ang": torch.mean(sn_a),
+        "norm/inferred_lin": torch.mean(sn_l),
+        "alignment/unnormalized/ang": torch.mean(dp_a),
+        "alignment/unnormalized/lin": torch.mean(dp_l),
+        "alignment/normalized/ang": torch.mean(dp_a / (tn_a * sn_a + 1e-12)),
+        "alignment/normalized/lin": torch.mean(dp_l / (tn_l * sn_l + 1e-12)),
+    }
+    return loss, stats

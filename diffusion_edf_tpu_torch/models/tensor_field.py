@@ -43,7 +43,8 @@ class MultiscaleTensorField(nn.Module):
         irreps_mlp_mid=3,
         use_src_point_attn: bool = False,
         cutoff_method: str = "edge_attn",
-        **_inference_ignored,  # alpha_drop / proj_drop: dropout is training-only
+        alpha_drop: float = 0.1,
+        proj_drop: float = 0.0,
     ):
         super().__init__()
         self.n_scales = len(r_cluster_multiscale)
@@ -82,6 +83,7 @@ class MultiscaleTensorField(nn.Module):
             irreps_src=irreps_in, irreps_emb=irreps_in, irreps_edge_attr=Irreps(irreps_sh),
             num_heads=num_heads, fc_neurons=tuple(fc_neurons), irreps_mlp_mid=irreps_mlp_mid,
             use_src_point_attn=use_src_point_attn, use_edge_logits=use_edge_weights,
+            alpha_drop=alpha_drop, proj_drop=proj_drop,
         )
         self.gnn_block_init = EquiformerBlock(
             irreps_dst=Irreps(irreps_query) if use_dst else irreps_in,

@@ -1,5 +1,5 @@
 """Equivariant graph attention over padded neighbourhoods (counterpart of
-the JAX package's ``nn/attention.py``, inference only).
+the JAX package's ``nn/attention.py``).
 
 The message lanes come in i-major order (``nn/tp.py::im_perm`` of
 ``irreps_input``), as ``EquiformerBlock``'s linears emit them.  Per edge slot:
@@ -24,8 +24,17 @@ The per-edge segment has four implementations, chosen by ``edge_impl``:
   softmax included, and on the GPU computes only the slots the mask keeps.
 
 Each wrapper launches its hand-written CUDA kernel on CUDA tensors and runs
-its plain version on CPU tensors.  ``edge_impl=None`` picks ``"kernel"`` for
-CUDA tensors and ``"plain"`` for CPU tensors.  All read the same parameters.
+its plain version on CPU tensors.  All read the same parameters.  The
+kernels have no backward and no dropout (in the JAX package too, they are
+inference-only), so ``edge_impl=None`` picks ``"plain"`` while autograd
+records (grad enabled and a parameter or input requiring grad) or while
+dropout is active (``train()`` mode with ``alpha_drop > 0``), else
+``"kernel"`` for CUDA tensors and ``"plain"`` for CPU tensors; any other
+``edge_impl`` than ``"plain"`` raises ``RuntimeError`` in those two cases.
+
+In ``train()`` mode the attention weights are dropped with probability
+``alpha_drop`` after the softmax, and with ``proj_drop > 0`` whole irreps of
+the output; the keep masks come from ``dropout_generator``.
 """
 from __future__ import annotations
 
@@ -39,11 +48,11 @@ from torch import nn
 from ..geom.irreps import Irreps, multiply_irreps, sort_irreps_even_first
 from .edge_kernel import build_edge_plan, edge_kernel, pack_radial, prepare_weights, weights_bf16
 from .fused_attention import fused_attention
-from .layers import GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
+from .layers import EquivariantDropout, GateFromIrreps, IrrepsLinear, irreps2gate, keep_mask, scalar_silu
 from .radial import RadialProfile
 from .tp import cm_eligible, cm_input_perm, dtp_instructions, im_perm
 from .tp_modules import DepthwiseTP, SeparableFCTP
-from .util import cached, constant, smooth_leaky_relu, smooth_leaky_relu_norm
+from .util import cached, constant, records_grad, smooth_leaky_relu, smooth_leaky_relu_norm
 
 __all__ = ["GraphAttention", "attn_heads_irreps", "EDGE_IMPLS"]
 
@@ -86,10 +95,14 @@ class GraphAttention(nn.Module):
         num_heads: int,
         irreps_head=None,
         edge_impl: Optional[str] = None,
+        alpha_drop: float = 0.1,
+        proj_drop: float = 0.0,
     ):
         super().__init__()
         assert edge_impl is None or edge_impl in EDGE_IMPLS, edge_impl
         self.edge_impl = edge_impl
+        self.alpha_drop = float(alpha_drop)
+        self.dropout_generator: Optional[torch.Generator] = None
         irreps_input = self.irreps_input = Irreps(irreps_input)
         irreps_mid = self.irreps_mid = irreps_input
         irreps_edge = Irreps(irreps_edge_attr)
@@ -124,9 +137,12 @@ class GraphAttention(nn.Module):
             use_activation=False, x_component_major=True,
         )
         self.proj = IrrepsLinear(irreps_attn, Irreps(irreps_output))
+        if proj_drop > 0.0:
+            self.proj_drop = EquivariantDropout(irreps_output, proj_drop)
         self.plan = build_edge_plan(
             prog1, dtp_instructions(irreps_mid, irreps_edge, irreps_attn), irreps_mid, H, ma, irreps_attn
         )
+        self.eval()  # deterministic until train(), as the JAX module's deterministic=True default
 
     def _dmat(self) -> torch.Tensor:
         """Block-diagonal (mul_alpha, H) matrix of the per-head alpha dot."""
@@ -155,7 +171,7 @@ class GraphAttention(nn.Module):
         edge_pre_attn_logit: Optional[torch.Tensor] = None,  # (Nd, K)
         edge_post_attn: Optional[torch.Tensor] = None,  # (Nd, K)
     ) -> torch.Tensor:
-        impl = self.edge_impl or ("kernel" if message.is_cuda else "plain")
+        impl = self._route(message, edge_attr, edge_scalars, edge_pre_attn_logit, edge_post_attn)
         nd, nk = message.shape[:2]
         H = self.H
         if impl == "fused":
@@ -163,7 +179,7 @@ class GraphAttention(nn.Module):
             head_of_col = _head_of_col(self.irreps_head, H, self.irreps_attn.dim)
             attn = fused_attention(self.plan, head_of_col, message, edge_attr, edge_scalars, edge_mask,
                                    edge_pre_attn_logit, edge_post_attn, weights, rad)
-            return self.proj(attn)
+            return self._project(attn)
         msg2 = message.reshape(nd * nk, -1)
         attr2 = edge_attr.reshape(nd * nk, -1)
         scal2 = edge_scalars.reshape(nd * nk, -1)
@@ -200,9 +216,30 @@ class GraphAttention(nn.Module):
         alpha = ea / torch.clamp(ea.sum(dim=-1, keepdim=True), min=0.5)
         if edge_post_attn is not None:
             alpha = alpha * edge_post_attn[..., None, :]
+        if self._dropping():
+            keep = keep_mask(alpha.shape, self.alpha_drop, self.dropout_generator, alpha.device)
+            alpha = alpha * keep / (1.0 - self.alpha_drop)
 
         attn_hf = torch.einsum("nhk,nkf->nhf", alpha, val)
         key = (self.irreps_head, H, self.irreps_attn.dim)
         Hsel = constant(("head_select",) + key, lambda: _head_select(*key), attn_hf)
         attn = torch.einsum("nhf,hf->nf", attn_hf, Hsel)
-        return self.proj(attn)
+        return self._project(attn)
+
+    def _dropping(self) -> bool:
+        return self.training and self.alpha_drop > 0.0
+
+    def _route(self, *inputs) -> str:
+        """The ``edge_impl`` of this call (see the module docstring)."""
+        grad = torch.is_grad_enabled() and records_grad(*inputs, list(self.parameters()))
+        if self.edge_impl is None:
+            return "plain" if grad or self._dropping() or not inputs[0].is_cuda else "kernel"
+        if self.edge_impl != "plain" and (grad or self._dropping()):
+            raise RuntimeError(f"GraphAttention: edge_impl={self.edge_impl!r} has no backward and no dropout; "
+                               "it runs under torch.no_grad() in eval() mode (edge_impl=None routes autograd "
+                               "and dropout to 'plain')")
+        return self.edge_impl
+
+    def _project(self, attn: torch.Tensor) -> torch.Tensor:
+        out = self.proj(attn)
+        return self.proj_drop(out) if hasattr(self, "proj_drop") else out

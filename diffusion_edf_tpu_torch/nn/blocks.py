@@ -1,5 +1,7 @@
 """Equiformer blocks over padded neighbourhoods (counterpart of the JAX
-package's ``nn/blocks.py``, inference only)."""
+package's ``nn/blocks.py``).  Dropout (``alpha_drop`` on the attention
+weights, ``proj_drop`` on whole irreps of the attention and feed-forward
+outputs) acts in ``train()`` mode only."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -10,7 +12,7 @@ from torch import nn
 from ..data import FeaturedPoints, GraphEdges
 from ..geom.irreps import Irreps, sort_irreps_even_first
 from .attention import GraphAttention
-from .layers import EquivariantLayerNorm, GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
+from .layers import EquivariantDropout, EquivariantLayerNorm, GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
 from .tp import im_perm
 
 __all__ = ["FeedForwardNetwork", "EquiformerBlock", "ProjectIfMismatch", "resolve_mlp_mid"]
@@ -43,7 +45,7 @@ class ProjectIfMismatch(nn.Module):
 
 
 class FeedForwardNetwork(nn.Module):
-    def __init__(self, irreps_in, irreps_out, irreps_mlp_mid=None):
+    def __init__(self, irreps_in, irreps_out, irreps_mlp_mid=None, proj_drop: float = 0.0):
         super().__init__()
         irreps_in = Irreps(irreps_in)
         mid = Irreps(irreps_mlp_mid) if irreps_mlp_mid is not None else irreps_in
@@ -51,11 +53,14 @@ class FeedForwardNetwork(nn.Module):
         self.fctp1 = IrrepsLinear(irreps_in, mid if g.dim == 0 else (s + g + t).simplify())
         self.gate = GateFromIrreps(mid) if g.dim else None
         self.fctp2 = IrrepsLinear(mid, Irreps(irreps_out))
+        if proj_drop > 0.0:
+            self.proj_drop = EquivariantDropout(irreps_out, proj_drop)
 
     def forward(self, f: torch.Tensor) -> torch.Tensor:
         h = self.fctp1(f)
         h = scalar_silu(h) if self.gate is None else self.gate(h)
-        return self.fctp2(h)
+        h = self.fctp2(h)
+        return self.proj_drop(h) if hasattr(self, "proj_drop") else h
 
 
 class EquiformerBlock(nn.Module):
@@ -79,6 +84,8 @@ class EquiformerBlock(nn.Module):
         skip_connection: bool = True,
         use_src_point_attn: bool = False,
         use_edge_logits: bool = True,
+        alpha_drop: float = 0.1,
+        proj_drop: float = 0.0,
     ):
         super().__init__()
         irreps_src, irreps_dst = Irreps(irreps_src), Irreps(irreps_dst)
@@ -99,16 +106,21 @@ class EquiformerBlock(nn.Module):
             fc_neurons=tuple(fc_neurons),
             num_heads=num_heads,
             irreps_head=irreps_head,
+            alpha_drop=alpha_drop,
+            proj_drop=proj_drop,
         )
         if skip_connection and use_dst_feature:
             self.skip_1 = ProjectIfMismatch(irreps_dst, irreps_emb, layernorm=False)
         self.post_norm = EquivariantLayerNorm(irreps_emb)
-        self.ffn = FeedForwardNetwork(irreps_emb, irreps_out, resolve_mlp_mid(irreps_emb, irreps_mlp_mid))
+        self.ffn = FeedForwardNetwork(irreps_emb, irreps_out, resolve_mlp_mid(irreps_emb, irreps_mlp_mid), proj_drop)
         if skip_connection:
             self.skip_2 = ProjectIfMismatch(irreps_emb, irreps_out, layernorm=False)
 
     def forward(self, src: FeaturedPoints, dst: FeaturedPoints, edges: GraphEdges) -> FeaturedPoints:
-        message = self.linear_src(self.prenorm_src(src.f))[edges.idx]  # (Nd, K, F_emb) i-major
+        # (Nd, K, F_emb) i-major; index_select, whose backward is an index_add
+        # (advanced indexing's sorts its indices on CUDA)
+        msg_src = self.linear_src(self.prenorm_src(src.f))
+        message = torch.index_select(msg_src, 0, edges.idx.reshape(-1)).reshape(*edges.idx.shape, -1)
         if self.use_dst_feature:
             message = message + self.linear_dst(self.prenorm_dst(dst.f))[:, None, :]
         post_attn = None

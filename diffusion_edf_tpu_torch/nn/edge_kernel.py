@@ -59,7 +59,7 @@ from ..geom.irreps import Irreps
 from .cuda_build import load_library
 from .layers import irreps2gate, norm_sigmoid, scalar_silu
 from .tp import TPProgram, _cm_meta, im_perm
-from .util import constant, sigmoid_norm, silu_norm, smooth_leaky_relu, smooth_leaky_relu_norm
+from .util import constant, records_grad, sigmoid_norm, silu_norm, smooth_leaky_relu, smooth_leaky_relu_norm
 
 __all__ = [
     "EdgePlan",
@@ -663,7 +663,12 @@ def edge_kernel(plan: EdgePlan, x1, attr, edge_scalars, weights, rad, mask=None)
     bool or None: the rows it drops come back as exact zeros, and the kernel
     computes only the rows it keeps (float32 only; the mixed mode raises
     ``ValueError`` on a mask).  CPU tensors take :func:`edge_core_plain`;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel, which has no backward: a CUDA call that
+    autograd would record (grad enabled, an operand requiring grad) raises
+    ``RuntimeError``."""
     if x1.is_cuda:
+        if records_grad(x1, attr, edge_scalars, mask, weights, rad):
+            raise RuntimeError("edge_kernel: the CUDA kernel has no backward; call it under torch.no_grad() "
+                               "(GraphAttention routes autograd to edge_impl='plain')")
         return _launch(plan, x1, attr, edge_scalars, weights, rad, mask)
     return edge_core_plain(plan, x1, attr, edge_scalars, weights, rad, mask)

@@ -38,7 +38,7 @@ import torch
 
 from .cuda_build import load_library
 from .edge_kernel import EdgePlan, edge_core_plain, mma_segment_operands, raise_launch_error
-from .util import constant, sigmoid_norm, silu_norm, smooth_leaky_relu_norm
+from .util import constant, records_grad, sigmoid_norm, silu_norm, smooth_leaky_relu_norm
 
 __all__ = ["fused_attention", "fused_attention_plain", "compact_plain", "tile_segments", "tile_stats", "bind",
            "launches"]
@@ -189,8 +189,12 @@ def fused_attention(plan, head_of_col, message, edge_attr, edge_scalars, mask, p
     ``post_attn`` (Nd, K) or None; ``weights`` from ``prepare_weights``,
     ``rad`` from ``pack_radial``; ``head_of_col[f]`` is the head of output
     lane ``f``.  CPU tensors take :func:`fused_attention_plain`; CUDA tensors
-    launch the kernel."""
+    launch the kernel, which has no backward: a CUDA call that autograd would
+    record (grad enabled, an operand requiring grad) raises ``RuntimeError``."""
     args = (plan, head_of_col, message, edge_attr, edge_scalars, mask, pre_logit, post_attn, weights, rad)
+    if message.is_cuda and records_grad(*args[2:]):
+        raise RuntimeError("fused_attention: the CUDA kernel has no backward; call it under torch.no_grad() "
+                           "(GraphAttention routes autograd to edge_impl='plain')")
     if message.shape[0] == 0 or message.shape[1] == 0:  # no row, or no slot to attend
         return message.new_zeros(message.shape[0], plan.attn_dim)
     if message.is_cuda:

@@ -1,5 +1,5 @@
-"""Core equivariant layers: irreps linear, layer norm, gate (counterpart of
-the JAX package's ``nn/layers.py``)."""
+"""Core equivariant layers: irreps linear, layer norm, gate and dropout
+(counterpart of the JAX package's ``nn/layers.py``)."""
 from __future__ import annotations
 
 import functools
@@ -19,6 +19,9 @@ __all__ = [
     "irreps2gate",
     "scalar_silu",
     "norm_sigmoid",
+    "EquivariantDropout",
+    "keep_mask",
+    "drop_irreps",
 ]
 
 _SCALAR = Irrep(0, 1)
@@ -72,43 +75,68 @@ class IrrepsLinear(nn.Module):
                 self.b_names[oi] = f"b{oi}"
                 self.register_parameter(f"b{oi}", nn.Parameter(torch.empty(mul_out)))
 
-    def materialize(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The effective dense ``(W (dim_in, dim_out), bias (dim_out,))`` in
-        canonical layouts, built from the same params."""
+    @functools.cached_property
+    def _tables(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Where each entry of the dense canonical ``W (dim_in, dim_out)`` and
+        ``bias (dim_out,)`` comes from: an index into the concatenated
+        flattened weights (biases), or one past the end, which reads 0."""
         irreps_in, irreps_out = self.irreps_in, self.irreps_out
-        ref = next(iter(self.parameters()))
-        W = ref.new_zeros(irreps_in.dim, irreps_out.dim)
-        bias = ref.new_zeros(irreps_out.dim)
+        n_w = sum(mul_in * irreps_out[oi][0] for oi, (_, mul_in) in self.w_names.items())
+        n_b = sum(irreps_out[oi][0] for oi in self.b_names)
+        W = np.full((irreps_in.dim, irreps_out.dim), n_w, dtype=np.int64)
+        B = np.full((irreps_out.dim,), n_b, dtype=np.int64)
         in_slices, out_slices = irreps_in.slices(), irreps_out.slices()
+        w_off = b_off = 0
         for oi, (mul_out, ir) in enumerate(irreps_out):
-            d = ir.dim
+            d, o0 = ir.dim, out_slices[oi].start
             if oi in self.w_names:
-                name, mul_in = self.w_names[oi]
-                w = (getattr(self, name) - 1.0) / float(np.sqrt(mul_in))
-                eye = torch.eye(d, dtype=w.dtype, device=w.device)
                 u0 = 0
                 for ii in self.in_by_ir[ir]:
-                    mi = irreps_in[ii][0]
-                    blk = torch.einsum("uw,de->udwe", w[u0 : u0 + mi], eye).reshape(mi * d, mul_out * d)
-                    W[in_slices[ii].start : in_slices[ii].start + mi * d,
-                      out_slices[oi].start : out_slices[oi].start + mul_out * d] = blk
-                    u0 += mi
+                    i0 = in_slices[ii].start
+                    for u in range(irreps_in[ii][0]):
+                        for w in range(mul_out):
+                            for e in range(d):
+                                W[i0 + u * d + e, o0 + w * d + e] = w_off + (u0 + u) * mul_out + w
+                    u0 += irreps_in[ii][0]
+                w_off += self.w_names[oi][1] * mul_out
             if oi in self.b_names:
-                s = out_slices[oi].start
-                bias[s : s + mul_out] = getattr(self, self.b_names[oi])
-        return W, bias
+                B[o0 : o0 + mul_out] = np.arange(b_off, b_off + mul_out)
+                b_off += mul_out
+        return W, B
+
+    def _gather(self, permuted: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(W, bias)`` gathered from the params by :attr:`_tables`, in the
+        permuted layouts of ``input_perm`` / ``output_perm`` or canonical."""
+        def tables():
+            W_idx, B_idx = self._tables
+            if permuted and self.input_perm is not None:
+                W_idx = W_idx[list(self.input_perm), :]
+            if permuted and self.output_perm is not None:
+                op = list(self.output_perm)
+                W_idx, B_idx = W_idx[:, op], B_idx[op]
+            return W_idx, B_idx
+
+        ref = next(iter(self.parameters()))
+        key = ("linear", self.irreps_in, self.irreps_out, bool(self.b_names)) + (
+            (self.input_perm, self.output_perm) if permuted else (None, None))
+        W_i = constant(key + ("W",), lambda: tables()[0].reshape(-1), ref, dtype=torch.long)
+        B_i = constant(key + ("B",), lambda: tables()[1], ref, dtype=torch.long)
+        ws = [((getattr(self, name) - 1.0) / float(np.sqrt(mul_in))).reshape(-1) for name, mul_in in self.w_names.values()]
+        bs = [getattr(self, name) for name in self.b_names.values()]
+        zero = ref.new_zeros(1)
+        # index_select, whose backward is an index_add (advanced indexing's sorts its indices on CUDA)
+        W = torch.index_select(torch.cat(ws + [zero]), 0, W_i).reshape(self.irreps_in.dim, self.irreps_out.dim)
+        return W, torch.index_select(torch.cat(bs + [zero]), 0, B_i)
+
+    def materialize(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The effective dense ``(W (dim_in, dim_out), bias (dim_out,))`` in
+        canonical layouts, built from the same params: ``(w - 1) /
+        sqrt(mul_in)`` blocks times the identity of each irrep, and the
+        biases of the even scalars (one gather each)."""
+        return self._gather(permuted=False)
 
     def _dense(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        def build():
-            W, bias = self.materialize()
-            if self.input_perm is not None:
-                W = W[list(self.input_perm), :]
-            if self.output_perm is not None:
-                op = list(self.output_perm)
-                W, bias = W[:, op], bias[op]
-            return W.contiguous(), bias.contiguous()
-
-        return cached(self, "dense", list(self.parameters()), build)
+        return cached(self, "dense", list(self.parameters()), lambda: self._gather(permuted=True))
 
     def forward(self, f: torch.Tensor) -> torch.Tensor:
         assert f.shape[-1] == self.irreps_in.dim, (f.shape, self.irreps_in)
@@ -233,3 +261,35 @@ class GateFromIrreps(nn.Module):
         key = (self.g, self.t, self.component_major)
         R = constant(("gate_R",) + key, lambda: _gate_expander(*key), f)
         return torch.cat([scalars, f[..., sd + gd :] * (gates @ R)], dim=-1)
+
+
+def keep_mask(shape, rate: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The draw of a dropout: a bool mask, True with probability ``1 - rate``
+    (``uniform < 1 - rate``, as ``jax.random.bernoulli`` draws it)."""
+    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+
+
+def drop_irreps(f: torch.Tensor, keep: torch.Tensor, irreps: Irreps, rate: float) -> torch.Tensor:
+    """``f`` (..., irreps.dim) with every irrep instance that ``keep`` (...,
+    num_irreps) drops zeroed and the rest scaled by ``1 / (1 - rate)``."""
+    reps = constant(("irrep_dims", irreps), lambda: [ir.dim for mul, ir in irreps for _ in range(mul)], f,
+                    dtype=torch.long)
+    return f * torch.repeat_interleave(keep.to(f.dtype), reps, dim=-1) / (1.0 - rate)
+
+
+class EquivariantDropout(nn.Module):
+    """Drops whole irrep instances with probability ``rate`` in ``train()``
+    mode, the identity in ``eval()`` mode.  The keep mask is drawn from
+    ``dropout_generator`` (None: torch's default generator of the device)."""
+
+    def __init__(self, irreps, rate: float):
+        super().__init__()
+        self.irreps, self.rate = Irreps(irreps), float(rate)
+        self.dropout_generator: Optional[torch.Generator] = None
+        self.eval()  # deterministic until train()
+
+    def forward(self, f: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return f
+        keep = keep_mask(f.shape[:-1] + (self.irreps.num_irreps,), self.rate, self.dropout_generator, f.device)
+        return drop_irreps(f, keep, self.irreps, self.rate)

@@ -198,6 +198,31 @@ def im_perm(irreps: Irreps) -> Tuple[int, ...]:
     return tuple(perm)
 
 
+@functools.lru_cache(maxsize=None)
+def _cm_gather(prog: TPProgram, x1_component_major: bool):
+    """Gather tables of :func:`apply_dtp_cm`, one column per output lane:
+    ``X (n, L)`` the x1 lane and ``C (n, L)`` the column of ``A`` of each of
+    the lane's up to ``n`` FMA terms, in the order of ``_cm_meta``'s terms
+    (missing terms read the zero column ``nA`` appended to ``A``), and
+    ``W (L,)`` the weight lane."""
+    terms, C_all, _ = _cm_meta(prog)
+    nA = C_all.shape[1]
+    lanes = []
+    for t in terms:
+        off, mul1, d1 = t["e1_off"], t["mul1"], t["d1"]
+        for iks in t["k_terms"]:
+            for u in range(mul1):
+                src = [(off + i * mul1 + u if x1_component_major else off + u * d1 + i, c) for i, c in iks]
+                lanes.append((src, t["w_start"] + u))
+    n = max([1] + [len(src) for src, _ in lanes])
+    X = np.zeros((n, len(lanes)), dtype=np.int64)
+    C = np.full((n, len(lanes)), nA, dtype=np.int64)
+    for lane, (src, _) in enumerate(lanes):
+        for j, (x, c) in enumerate(src):
+            X[j, lane], C[j, lane] = x, c
+    return X, C, np.asarray([w for _, w in lanes], dtype=np.int64)
+
+
 def apply_dtp_cm(
     prog: TPProgram,
     x1: torch.Tensor,
@@ -208,31 +233,25 @@ def apply_dtp_cm(
     """uvu TP in the component-major output layout (``lane = k*mul1 + u``
     per instruction; map back with :func:`cm_input_perm`).
 
-    ``x1_component_major``: x1 lanes are in :func:`im_perm` order, so every
-    slice is contiguous; canonical inputs use strided slices."""
-    terms, _, _ = _cm_meta(prog)
+    ``x1_component_major``: x1 lanes are in :func:`im_perm` order (else
+    canonical).  Every output lane sums its FMA terms ``x1[lane_i] *
+    A[col]`` in a fixed order and is scaled by its weight lane; the j-th
+    terms of all lanes are gathered at once, so the op count does not grow
+    with the number of paths (it matters under autograd, where every op has
+    a backward)."""
+    key = (prog, x1_component_major)
+    X, C, W = (constant(("cm_gather", name) + key, lambda i=i: _cm_gather(*key)[i].reshape(-1), x1, dtype=torch.long)
+               for i, name in enumerate("XCW"))
+    n = X.shape[0] // W.shape[0]
     A = x2 @ constant(("cm_C_all", prog), lambda: _cm_meta(prog)[1], x2)  # (..., nA)
-    batch = torch.broadcast_shapes(
-        x1.shape[:-1], x2.shape[:-1], weight.shape[:-1] if weight.ndim > 1 else ()
-    )
-    pieces: List[torch.Tensor] = []
-    for t in terms:
-        off, mul1, d1 = t["e1_off"], t["mul1"], t["d1"]
-        w_p = weight[..., t["w_start"] : t["w_start"] + mul1]
-        for iks in t["k_terms"]:
-            acc = None
-            for i, c in iks:
-                if x1_component_major:
-                    xs = x1[..., off + i * mul1 : off + (i + 1) * mul1]
-                else:
-                    xs = x1[..., off + i : off + (mul1 - 1) * d1 + i + 1 : d1]
-                term = xs * A[..., c : c + 1]
-                acc = term if acc is None else acc + term
-            if acc is None:
-                pieces.append(x1.new_zeros(batch + (mul1,)))
-            else:
-                pieces.append((acc * w_p).expand(batch + (mul1,)))
-    return torch.cat(pieces, dim=-1)
+    A = torch.nn.functional.pad(A, (0, 1))  # the zero column of missing terms
+    # index_select, whose backward is an index_add (advanced indexing's sorts its indices on CUDA)
+    prod = torch.index_select(x1, -1, X) * torch.index_select(A, -1, C)  # (..., n * L), term-major
+    terms = prod.reshape(*prod.shape[:-1], n, W.shape[0]).unbind(-2)
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc * torch.index_select(weight, -1, W)
 
 
 def _blocks(irreps: Irreps, f: torch.Tensor) -> List[torch.Tensor]:

@@ -1,6 +1,6 @@
 """Small numeric utilities: activation normalization constants, the
-smooth leaky ReLU, a cache of constant tables per device, and a cache of
-tensors derived from parameters."""
+smooth leaky ReLU, a cache of constant tables per device, a cache of
+tensors derived from parameters, and the test of whether autograd records."""
 from __future__ import annotations
 
 import functools
@@ -17,6 +17,7 @@ __all__ = [
     "smooth_leaky_relu_norm",
     "constant",
     "cached",
+    "records_grad",
 ]
 
 
@@ -87,3 +88,20 @@ def cached(module: torch.nn.Module, key: Hashable, deps: Sequence[torch.Tensor],
     val = fn()
     store[key] = (stamp, val)
     return val
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd would record an op on any of ``tensors`` (tensors,
+    None, or tuples and lists of them, nested): grad mode is on and one of
+    them requires grad.  The hand-written kernels have no backward."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(tensors)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, torch.Tensor):
+            if t.requires_grad:
+                return True
+        elif isinstance(t, (tuple, list)):
+            stack.extend(t)
+    return False

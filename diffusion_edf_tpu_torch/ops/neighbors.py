@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["pairwise_sqdist", "radius_neighbors", "dense_neighbors", "farthest_point_sampling"]
+__all__ = ["pairwise_sqdist", "radius_neighbors", "dense_neighbors", "farthest_point_sampling", "count_within_radius"]
 
 
 def pairwise_sqdist(dst_x: torch.Tensor, src_x: torch.Tensor) -> torch.Tensor:
@@ -109,3 +109,20 @@ def farthest_point_sampling(
     n_valid = int(mask.sum())
     valid = torch.arange(n_samples, device=x.device) < min(n_valid, n_samples)
     return idx, valid
+
+
+def count_within_radius(
+    src_x: torch.Tensor,
+    dst_x: torch.Tensor,
+    r: float,
+    src_mask: Optional[torch.Tensor] = None,
+    dst_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """For each destination (Nd,), the number of valid sources within ``r``
+    (0 for an invalid destination); the weights of contact-point sampling."""
+    within = pairwise_sqdist(dst_x, src_x) <= r * r
+    if src_mask is not None:
+        within &= src_mask[None, :]
+    if dst_mask is not None:
+        within &= dst_mask[:, None]
+    return torch.sum(within.to(torch.int32), dim=-1, dtype=torch.int32)

@@ -1,20 +1,32 @@
-"""Host-side point-cloud containers, the preprocessing pipeline and padding
-into ``FeaturedPoints`` (the subset of the JAX package's ``train/data.py``
-that sampling needs).  Preprocessing is numpy and draws its jitter from a
-numpy generator, so the same seed gives the same clouds as the JAX package.
-Voxel downsampling is the numpy ``np.unique`` path."""
+"""Host-side demo containers, the preprocessing pipeline, padding into
+``FeaturedPoints`` and the demo datasets on disk (counterpart of the JAX
+package's ``train/data.py``).  Preprocessing is numpy and draws its jitter
+from a numpy generator, so the same seed gives the same clouds as the JAX
+package.  Voxel downsampling is the numpy ``np.unique`` path."""
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import yaml
 
 from ..data import FeaturedPoints
 
-__all__ = ["PointCloud", "TargetPoseDemo", "PREPROCESS_REGISTRY", "compose_proc_fn", "pad_pointcloud"]
+__all__ = [
+    "PointCloud",
+    "TargetPoseDemo",
+    "DemoSequence",
+    "PREPROCESS_REGISTRY",
+    "compose_proc_fn",
+    "pad_pointcloud",
+    "DemoDataset",
+    "load_demo_sequence",
+    "save_demo_sequence",
+]
 
 
 @dataclasses.dataclass
@@ -41,6 +53,19 @@ class TargetPoseDemo:
 
     def __post_init__(self):
         self.target_poses = np.asarray(self.target_poses, dtype=np.float32).reshape(-1, 7)
+
+
+@dataclasses.dataclass
+class DemoSequence:
+    """Ordered task steps: step 0 is the pick, step 1 the place."""
+
+    steps: List[TargetPoseDemo]
+
+    def __getitem__(self, i: int) -> TargetPoseDemo:
+        return self.steps[i]
+
+    def __len__(self) -> int:
+        return len(self.steps)
 
 
 def _voxel_downsample(pcd: PointCloud, voxel_size: float, coord_reduction: str = "average") -> PointCloud:
@@ -182,3 +207,76 @@ def pad_pointcloud(pcd: PointCloud, n_pad: int, device="cpu") -> FeaturedPoints:
     mask[:n] = True
     return FeaturedPoints(x=torch.as_tensor(x, device=device), f=torch.as_tensor(f, device=device),
                           mask=torch.as_tensor(mask, device=device))
+
+
+def _load_pt_tensor(path: str) -> np.ndarray:
+    return np.asarray(torch.load(path, map_location="cpu", weights_only=True))
+
+
+def _load_pcd_dir(d: str) -> PointCloud:
+    return PointCloud(points=_load_pt_tensor(os.path.join(d, "points.pt")),
+                      colors=_load_pt_tensor(os.path.join(d, "colors.pt")))
+
+
+def load_demo_sequence(demo_dir: str) -> DemoSequence:
+    """One demo from the native ``demo.npz`` layout, or from the reference
+    layout (``step_K/{scene_pcd,grasp_pcd,target_poses}`` of torch tensors)."""
+    npz = os.path.join(demo_dir, "demo.npz")
+    steps = []
+    if os.path.exists(npz):
+        with np.load(npz) as data:
+            k = 0
+            while f"step{k}_scene_points" in data:
+                steps.append(TargetPoseDemo(
+                    scene_pcd=PointCloud(data[f"step{k}_scene_points"], data[f"step{k}_scene_colors"]),
+                    grasp_pcd=PointCloud(data[f"step{k}_grasp_points"], data[f"step{k}_grasp_colors"]),
+                    target_poses=data[f"step{k}_poses"],
+                    name=os.path.basename(demo_dir),
+                ))
+                k += 1
+        return DemoSequence(steps=steps)
+    k = 0
+    while os.path.isdir(os.path.join(demo_dir, f"step_{k}")):
+        sd = os.path.join(demo_dir, f"step_{k}")
+        steps.append(TargetPoseDemo(
+            scene_pcd=_load_pcd_dir(os.path.join(sd, "scene_pcd")),
+            grasp_pcd=_load_pcd_dir(os.path.join(sd, "grasp_pcd")),
+            target_poses=_load_pt_tensor(os.path.join(sd, "target_poses", "poses.pt")),
+            name=os.path.basename(demo_dir),
+        ))
+        k += 1
+    return DemoSequence(steps=steps)
+
+
+def save_demo_sequence(demo: DemoSequence, demo_dir: str) -> None:
+    """Write the native ``demo.npz`` layout (the symmetry is not stored, as
+    in the JAX package)."""
+    os.makedirs(demo_dir, exist_ok=True)
+    payload = {}
+    for k, step in enumerate(demo.steps):
+        payload[f"step{k}_scene_points"] = step.scene_pcd.points
+        payload[f"step{k}_scene_colors"] = step.scene_pcd.colors
+        payload[f"step{k}_grasp_points"] = step.grasp_pcd.points
+        payload[f"step{k}_grasp_colors"] = step.grasp_pcd.colors
+        payload[f"step{k}_poses"] = step.target_poses
+    np.savez_compressed(os.path.join(demo_dir, "demo.npz"), **payload)
+
+
+class DemoDataset:
+    """The demos that an annotation file (``data.yaml``: a list of
+    ``{path: ...}``) lists, loaded on first access."""
+
+    def __init__(self, dataset_dir: str, annotation_file: str = "data.yaml"):
+        self.dataset_dir = dataset_dir
+        with open(os.path.join(dataset_dir, annotation_file)) as f:
+            ann = yaml.safe_load(f)
+        self.demo_dirs = [os.path.join(dataset_dir, item["path"]) for item in ann]
+        self._cache: Dict[int, DemoSequence] = {}
+
+    def __len__(self) -> int:
+        return len(self.demo_dirs)
+
+    def __getitem__(self, i: int) -> DemoSequence:
+        if i not in self._cache:
+            self._cache[i] = load_demo_sequence(self.demo_dirs[i])
+        return self._cache[i]

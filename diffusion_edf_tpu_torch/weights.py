@@ -11,13 +11,13 @@ from __future__ import annotations
 
 import math
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["flax_key", "load_flat_params", "load_params_npz", "init_params"]
+__all__ = ["flax_key", "load_flat_params", "load_params_npz", "flat_arrays", "unflatten_arrays", "init_params"]
 
 
 def flax_key(name: str):
@@ -27,31 +27,63 @@ def flax_key(name: str):
     return key, tuple(int(p) for p in parts if p.isdigit())
 
 
-def load_flat_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
-    """Copy a flat flax-keyed dict into ``model``.  Keys and shapes must
-    match exactly both ways; ``__``-prefixed keys (``__meta__``) are skipped
-    and every array is cast to the parameter's dtype (f16 -> f32)."""
-    flat = {k: v for k, v in flat.items() if not k.startswith("__")}
+def _groups(model: nn.Module, tensors: Optional[Sequence[torch.Tensor]] = None):
+    """Flax key -> ``[(stack indices, tensor)]`` over the model's parameters
+    (or over ``tensors``, one for each parameter in its order)."""
+    named = list(model.named_parameters())
+    tensors = [p for _, p in named] if tensors is None else list(tensors)
+    assert len(tensors) == len(named)
     groups = defaultdict(list)
-    for name, p in model.named_parameters():
+    for (name, _), t in zip(named, tensors):
         key, idx = flax_key(name)
-        groups[key].append((idx, p))
+        groups[key].append((idx, t))
+    return groups
+
+
+def unflatten_arrays(model: nn.Module, flat: Dict[str, np.ndarray]) -> List[np.ndarray]:
+    """The arrays of a flat flax-keyed dict, one for each parameter of
+    ``model`` in its order.  Keys and shapes must match exactly both ways;
+    ``__``-prefixed keys (``__meta__``) are skipped."""
+    flat = {k: v for k, v in flat.items() if not k.startswith("__")}
+    groups = _groups(model)
     missing = sorted(set(groups) - set(flat))
     extra = sorted(set(flat) - set(groups))
     if missing or extra:
         raise KeyError(f"checkpoint keys differ: {len(missing)} missing (e.g. {missing[:3]}), "
                        f"{len(extra)} unknown (e.g. {extra[:3]})")
+    out = {}
+    for key, items in groups.items():
+        arr = np.asarray(flat[key])
+        if items[0][0]:
+            if arr.shape[0] != len(items):
+                raise ValueError(f"{key!r}: stacked axis {arr.shape[0]} vs {len(items)} modules")
+        for idx, p in items:
+            sub = arr[idx] if idx else arr
+            if tuple(sub.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch for {key!r}{list(idx)}: ckpt {sub.shape} vs model {tuple(p.shape)}")
+            out[id(p)] = sub
+    return [out[id(p)] for p in model.parameters()]
+
+
+def flat_arrays(model: nn.Module, tensors: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`unflatten_arrays`: the model's parameters (or
+    ``tensors``, one for each parameter) as a flat flax-keyed dict, stacked
+    groups stacked again along their first axis."""
+    out = {}
+    for key, items in _groups(model, tensors).items():
+        arrs = [t.detach().cpu().numpy() for _, t in sorted(items, key=lambda it: it[0])]
+        out[key] = np.stack(arrs) if items[0][0] else arrs[0]
+    return out
+
+
+def load_flat_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
+    """Copy a flat flax-keyed dict into ``model`` (see
+    :func:`unflatten_arrays`); every array is cast to the parameter's dtype
+    (f16 -> f32)."""
+    arrays = unflatten_arrays(model, flat)
     with torch.no_grad():
-        for key, items in groups.items():
-            arr = np.asarray(flat[key])
-            if items[0][0]:
-                if arr.shape[0] != len(items):
-                    raise ValueError(f"{key!r}: stacked axis {arr.shape[0]} vs {len(items)} modules")
-            for idx, p in items:
-                sub = arr[idx] if idx else arr
-                if tuple(sub.shape) != tuple(p.shape):
-                    raise ValueError(f"shape mismatch for {key!r}{list(idx)}: ckpt {sub.shape} vs model {tuple(p.shape)}")
-                p.copy_(torch.as_tensor(np.asarray(sub, dtype=np.float32)).to(p.dtype))
+        for p, a in zip(model.parameters(), arrays):
+            p.copy_(torch.as_tensor(np.asarray(a, dtype=np.float32)).to(p.dtype))
     return model
 
 

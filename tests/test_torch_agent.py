@@ -140,7 +140,13 @@ SHIPPED_CHECKPOINTS = [
     ("panda_mug/place_highres", 1935),
     ("panda_mug/place_ebm", 1927),
     ("panda_bowl/place_lowres", None),
+    # critics trained further from pick_ebm / place_ebm: the same model, the same keys
+    ("panda_mug/pick_ebm_fine", 934),
+    ("panda_mug/pick_ebm_cascade", 934),
+    ("panda_mug/place_ebm_cascade", 1927),
 ]
+CONFIG_OF = {"panda_mug/pick_ebm_fine": "panda_mug/pick_ebm", "panda_mug/pick_ebm_cascade": "panda_mug/pick_ebm",
+             "panda_mug/place_ebm_cascade": "panda_mug/place_ebm"}
 
 
 @pytest.mark.parametrize("name,n_keys", SHIPPED_CHECKPOINTS)
@@ -151,7 +157,7 @@ def test_shipped_checkpoint_loads(name, n_keys):
     params = {k for k in flat if not k.startswith("__")}
     if n_keys is not None:
         assert len(params) == n_keys
-    b = load_model_bundle(str(ROOT / "diffusion_edf_tpu" / "configs" / name), path, device="cpu")
+    b = load_model_bundle(str(ROOT / "diffusion_edf_tpu" / "configs" / CONFIG_OF.get(name, name)), path, device="cpu")
     keys = {flax_key(n)[0] for n, _ in b.model.named_parameters()}
     assert keys == params
     for n, p in b.model.named_parameters():

@@ -1,6 +1,6 @@
-"""The EBM critic: a tiny EBM model's energy in the port against the JAX
-model on shared parameters, and the tiny two-stage agent with a critic
-against the JAX agent.
+"""The EBM critic: a tiny EBM model's energy and score (the gradient of the
+energy) in the port against the JAX model on shared parameters, and the tiny
+two-stage agent with a critic against the JAX agent.
 
 The agents run at temperature 0, where the Langevin noise term is exactly
 zero: the noise of the two frameworks cannot match."""
@@ -75,12 +75,23 @@ def test_tiny_ebm_energy_matches_jax(tmp_path, edge_impl):
     with torch.no_grad():
         km, q = tmodel.get_key_pcd_multiscale(tscene), tmodel.get_query_pcd(tscene)
         te = tmodel.energy(t(Ts), km, q, t(time))
-        with pytest.raises(NotImplementedError, match="ebm_score"):
-            tmodel.score(t(Ts), km, q, t(time))
+        # the score of an EBM model is the gradient of its energy (ebm_score), which
+        # the kernels cannot give: an explicit kernel edge_impl refuses the autograd
+        if edge_impl == "plain":
+            tang, tlin = tmodel.score(t(Ts), km, q, t(time))
+        else:
+            with pytest.raises(RuntimeError, match="no backward"):
+                tmodel.score(t(Ts), km, q, t(time))
     assert te.shape == (3,) and float(te.min()) > 0
     # energies are O(1) sums of squares; 1e-5 holds for the module path and
     # for the fused core's other summation order alike
     np.testing.assert_allclose(np.asarray(je), te.numpy(), atol=1e-5)
+    if edge_impl == "plain":
+        jang, jlin = jmodel.apply(jb.params, jnp.asarray(Ts), jmodel.apply(jb.params, jscene, method=jmodel.get_key_pcd_multiscale),
+                                  jmodel.apply(jb.params, jscene, method=jmodel.get_query_pcd), jnp.asarray(time),
+                                  method=jmodel.score)
+        for a, b in ((jang, tang), (jlin, tlin)):  # gradients of O(1) energies, scaled by ang_mult / lin_mult
+            np.testing.assert_allclose(np.asarray(a), b.numpy(), atol=1e-4 * max(1.0, float(np.abs(a).max())))
 
 
 def test_tiny_cascade_with_critic_matches_jax(tmp_path):

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (the edge kernel in float32, unmasked and at
 masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
-attention kernel) against their plain PyTorch versions on the card.  This
+attention kernel) against their plain PyTorch versions on the card, and
+their refusal of autograd (they have no backward).  This
 file imports neither jax nor the JAX package, so it runs on a GPU machine
 without them:
 
@@ -165,12 +166,13 @@ def test_edge_kernel_refuses_other_widths():
     x1 = torch.randn(rows, m.plan.dim_in, generator=g, device="cuda")
     attr = spherical_harmonics(SH, torch.randn(rows, 3, generator=g, device="cuda"), eps=1e-4)
     es = torch.randn(rows, 8, generator=g, device="cuda")
-    weights, rad = m._kernel_weights()
     before = tek.launches
-    with pytest.raises(ValueError):
-        tek.edge_kernel(m.plan, x1, attr, es, weights, rad)
-    with pytest.raises(ValueError):
-        tek.edge_kernel(m.plan, x1, attr, es, weights, rad, mask=torch.ones(rows, dtype=torch.bool, device="cuda"))
+    with torch.no_grad():  # the width, not autograd, is what is refused here
+        weights, rad = m._kernel_weights()
+        with pytest.raises(ValueError):
+            tek.edge_kernel(m.plan, x1, attr, es, weights, rad)
+        with pytest.raises(ValueError):
+            tek.edge_kernel(m.plan, x1, attr, es, weights, rad, mask=torch.ones(rows, dtype=torch.bool, device="cuda"))
     assert tek.launches == before
 
 
@@ -271,3 +273,74 @@ def test_graph_attention_impl_matches_plain(impl, atol):
             m.edge_impl = edge_impl
             outs.append(m(msg, attr, sc, mask, edge_pre_attn_logit=pre, edge_post_attn=post))
     torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_autograd():
+    """A kernel call that autograd would record raises before it launches,
+    for an input or a weight that requires grad; under ``torch.no_grad()``
+    the same call launches."""
+    _need_cuda()
+    m = _ga("32x0e+16x1e+8x2e", 4, (32, 16, 16))
+    msg, attr, sc, mask, pre, post = _attention_inputs(m, 40, 24, 32, seed=5)
+    hoc = _head_of_col(m.irreps_head, m.H, m.irreps_attn.dim)
+    flat = [a.reshape(40 * 24, -1) for a in (msg, attr, sc)]
+    weights, rad = m._kernel_weights()  # grad on: the folded weights require grad
+    with torch.no_grad():
+        weights_ng, rad_ng = m._kernel_weights()
+    before = (tek.launches, tek.launches_bf16, tfa.launches)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tek.edge_kernel(m.plan, *flat, weights, rad, mask=mask.reshape(-1))
+    with pytest.raises(RuntimeError, match="no backward"):
+        tek.edge_kernel(m.plan, flat[0].clone().requires_grad_(True), *flat[1:], weights_ng, rad_ng)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.fused_attention(m.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.fused_attention(m.plan, hoc, msg.clone().requires_grad_(True), attr, sc, mask, pre, post, weights_ng, rad_ng)
+    torch.cuda.synchronize()
+    assert (tek.launches, tek.launches_bf16, tfa.launches) == before
+    with torch.no_grad():
+        tek.edge_kernel(m.plan, *flat, weights, rad, mask=mask.reshape(-1))
+        tfa.fused_attention(m.plan, hoc, msg, attr, sc, mask, pre, post, weights, rad)
+    torch.cuda.synchronize()
+    assert (tek.launches, tfa.launches) == (before[0] + 1, before[2] + 1)
+
+
+@pytest.mark.cuda
+def test_graph_attention_routes_autograd_and_dropout_to_plain():
+    """``edge_impl=None`` on CUDA: the kernel under ``torch.no_grad()`` in
+    eval() mode; the plain path, with no launch, while autograd records or
+    dropout is on, with the plain path's gradients (to 1e-5 of their
+    largest: the card's atomic adds in the gathers' backward sum in any
+    order); an explicit kernel ``edge_impl`` raises then."""
+    _need_cuda()
+    m = _ga("32x0e+16x1e+8x2e", 4, (32, 16, 16))
+    msg, attr, sc, mask, pre, post = _attention_inputs(m, 40, 24, 32, seed=6)
+
+    def run():
+        return m(msg, attr, sc, mask, edge_pre_attn_logit=pre, edge_post_attn=post)
+
+    before = tek.launches
+    with torch.no_grad():
+        run()
+    torch.cuda.synchronize()
+    assert tek.launches == before + 1
+    before = (tek.launches, tek.launches_bf16, tfa.launches)
+    run().square().sum().backward()
+    grads = [p.grad.clone() for p in m.parameters()]
+    m.train()
+    with torch.no_grad():
+        run()
+    m.eval()
+    torch.cuda.synchronize()
+    assert (tek.launches, tek.launches_bf16, tfa.launches) == before
+    m.zero_grad()
+    m.edge_impl = "plain"
+    run().square().sum().backward()
+    for a, p in zip(grads, m.parameters()):
+        torch.testing.assert_close(a, p.grad, rtol=0, atol=1e-5 * float(a.abs().max()))
+    for impl in ("kernel", "kernel_bf16", "fused"):
+        m.edge_impl = impl
+        with pytest.raises(RuntimeError, match="no backward"):
+            run()
+    assert (tek.launches, tek.launches_bf16, tfa.launches) == before
