@@ -7,8 +7,9 @@ checkpoints load unchanged (:mod:`.weights`).  This package never imports
 jax, flax or the JAX package.
 
 It covers the pick and place requests (``agent``: the cascades and their
-EBM critics), serving (``serve``) and training (``train.trainer``, the
-command line ``train.cli``).  At inference the per-edge segment of every
+EBM critics), serving (``serve``), training (``train.trainer``, the
+command line ``train.cli``) and evaluation (``eval``), for the panda and
+sapien model families.  At inference the per-edge segment of every
 ``GraphAttention`` runs through the hand-written CUDA kernels of ``csrc/``
 (:mod:`.nn.edge_kernel`, :mod:`.nn.fused_attention`); training runs the
 plain PyTorch path, since the kernels have no backward.

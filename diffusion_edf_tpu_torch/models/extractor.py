@@ -1,13 +1,14 @@
-"""Multiscale UNet point-cloud feature extractor (counterpart of the JAX
-package's ``models/extractor.py::UnetFeatureExtractor``, deterministic FPS;
-``alpha_drop`` / ``proj_drop``, per scale or one for all, act in ``train()``
-mode).
+"""Multiscale point-cloud feature extractors (counterpart of the JAX
+package's ``models/extractor.py``: ``UnetFeatureExtractor`` and
+``ForwardOnlyFeatureExtractor``, deterministic FPS; ``alpha_drop`` /
+``proj_drop``, per scale or one for all, act in ``train()`` mode).
 
 Per scale n the down path FPS-pools the cloud (``M_n = ceil(ratio * M_{n-1})``
 of the padded count), projects, runs a bipartite Equiformer block over the
-fine -> coarse radius edges and ``n_layers - 1`` self layers; a mid block
-runs on the coarsest scale; the up path walks back with self layers and
-unpool blocks over reversed edges and ``(a + b) / sqrt(3)`` skips.
+fine -> coarse radius edges and ``n_layers - 1`` self layers.  The UNet then
+runs a mid block on the coarsest scale and walks back with self layers and
+unpool blocks over reversed edges and ``(a + b) / sqrt(3)`` skips; the
+forward-only extractor returns the down path's last cloud of each scale.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from ..nn.layers import IrrepsLinear
 from ..nn.radial import GaussianRadialBasisFiniteCutoff
 from ..ops.neighbors import farthest_point_sampling, radius_neighbors
 
-__all__ = ["UnetFeatureExtractor", "resolve_radii"]
+__all__ = ["UnetFeatureExtractor", "ForwardOnlyFeatureExtractor", "build_feature_extractor", "resolve_radii"]
 
 
 def resolve_radii(radius: Sequence[Optional[float]], pool_ratio: Sequence[float]) -> List[float]:
@@ -83,7 +84,7 @@ class _DownPath(nn.Module):
         super().__init__()
         self.emb, self.sh = emb, [Irreps(i) for i in irreps_edge_attr]
         self.n_layers, self.pool_ratio, self.radii = n_layers, pool_ratio, radii
-        self.k_pool, self.k_self = k_pool, k_self
+        self.k_pool, self.k_self, self.mlp_mid, self.drop = k_pool, k_self, mlp_mid, drop
         if irreps_input is not None:
             self.input_emb = IrrepsLinear(Irreps(irreps_input), emb[0])
         for n in range(len(emb)):
@@ -96,10 +97,12 @@ class _DownPath(nn.Module):
                     emb[n], emb[n], self.sh[n], num_heads[n], fc_neurons[n], radii[n], mlp_mid[n], drop[n]))
 
     def forward(self, pcd: FeaturedPoints):
+        """(last cloud, every layer's cloud in order, each scale's last
+        cloud, each scale's self edges, each pool's (source, FPS indices))."""
         f = self.input_emb(pcd.f) if hasattr(self, "input_emb") else pcd.f
         points = FeaturedPoints(x=pcd.x, f=f, mask=pcd.mask, w=pcd.w)
         stack = [points]
-        scale_edges, pool_sources = [], []
+        scale_points, scale_edges, pool_sources = [], [], []
         for n in range(len(self.emb)):
             src = points
             m = max(1, math.ceil(self.pool_ratio[n] * src.n))
@@ -116,8 +119,54 @@ class _DownPath(nn.Module):
             for i in range(self.n_layers[n] - 1):
                 points = getattr(self, f"self_layer_{n}_{i}")(points, points, self_edges)
                 stack.append(points)
+            scale_points.append(points)
             scale_edges.append(self_edges)
-        return points, stack, scale_edges, pool_sources
+        return points, stack, scale_points, scale_edges, pool_sources
+
+
+def _down_path(irreps_input, irreps_emb, irreps_edge_attr, num_heads, fc_neurons, n_layers, pool_ratio, radius,
+               k_pool, k_self, irreps_mlp_mid, alpha_drop, proj_drop) -> _DownPath:
+    n_scales = len(irreps_emb)
+    return _DownPath(irreps_input, [Irreps(i) for i in irreps_emb], irreps_edge_attr, num_heads, fc_neurons,
+                     n_layers, pool_ratio, resolve_radii(radius, pool_ratio), k_pool, k_self,
+                     _per_scale(irreps_mlp_mid, n_scales),
+                     list(zip(_per_scale(alpha_drop, n_scales), _per_scale(proj_drop, n_scales))))
+
+
+class ForwardOnlyFeatureExtractor(nn.Module):
+    """The down path alone; each scale's last cloud projected to
+    ``irreps_output``.  ``n_layers_midstream`` and ``k_up`` are accepted for
+    the config schema and ignored, as in the JAX package."""
+
+    def __init__(
+        self,
+        irreps_input,
+        irreps_output,
+        irreps_emb: Sequence,
+        irreps_edge_attr: Sequence,
+        num_heads: Sequence[int],
+        fc_neurons: Sequence[Sequence[int]],
+        n_layers: Sequence[int],
+        pool_ratio: Sequence[float],
+        radius: Sequence[Optional[float]],
+        n_layers_midstream: int = 2,
+        k_pool: Sequence[int] = (24, 24, 24, 24),
+        k_self: Sequence[int] = (32, 32, 32, 32),
+        k_up: Sequence[int] = (12, 12, 12, 12),
+        irreps_mlp_mid: Union[int, Sequence[int]] = 3,
+        alpha_drop: Union[float, Sequence[float]] = 0.1,
+        proj_drop: Union[float, Sequence[float]] = 0.0,
+    ):
+        super().__init__()
+        self.down = _down_path(irreps_input, irreps_emb, irreps_edge_attr, num_heads, fc_neurons, n_layers,
+                               pool_ratio, radius, k_pool, k_self, irreps_mlp_mid, alpha_drop, proj_drop)
+        for n, emb in enumerate(self.down.emb):
+            self.add_module(f"project_out_{n}", ProjectIfMismatch(emb, Irreps(irreps_output)))
+
+    def forward(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
+        _, _, scale_points, _, _ = self.down(pcd)
+        return [FeaturedPoints(x=p.x, f=getattr(self, f"project_out_{n}")(p.f), mask=p.mask)
+                for n, p in enumerate(scale_points)]
 
 
 class UnetFeatureExtractor(nn.Module):
@@ -144,14 +193,10 @@ class UnetFeatureExtractor(nn.Module):
     ):
         super().__init__()
         n_scales = len(irreps_emb)
-        emb = self.emb = [Irreps(i) for i in irreps_emb]
-        sh = self.sh = [Irreps(i) for i in irreps_edge_attr]
-        radii = self.radii = resolve_radii(radius, pool_ratio)
-        mlp_mid = _per_scale(irreps_mlp_mid, n_scales)
-        drop = list(zip(_per_scale(alpha_drop, n_scales), _per_scale(proj_drop, n_scales)))
-        self.n_layers, self.n_layers_midstream, self.k_up = list(n_layers), n_layers_midstream, list(k_up)
-        self.down = _DownPath(irreps_input, emb, irreps_edge_attr, num_heads, fc_neurons, n_layers,
-                              pool_ratio, radii, k_pool, k_self, mlp_mid, drop)
+        self.down = _down_path(irreps_input, irreps_emb, irreps_edge_attr, num_heads, fc_neurons, n_layers,
+                               pool_ratio, radius, k_pool, k_self, irreps_mlp_mid, alpha_drop, proj_drop)
+        emb, sh, radii, mlp_mid, drop = self.down.emb, self.down.sh, self.down.radii, self.down.mlp_mid, self.down.drop
+        self.n_layers_midstream, self.k_up = n_layers_midstream, list(k_up)
         for i in range(n_layers_midstream):
             self.add_module(f"mid_layer_{i}", _ScaleLayer(
                 emb[-1], emb[-1], sh[-1], num_heads[-1], fc_neurons[-1], radii[-1], mlp_mid[-1], drop[-1]))
@@ -167,8 +212,9 @@ class UnetFeatureExtractor(nn.Module):
             self.add_module(f"project_out_{n}", ProjectIfMismatch(emb[n], Irreps(irreps_output)))
 
     def forward(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
-        n_scales = len(self.emb)
-        points, stack, scale_edges, pool_sources = self.down(pcd)
+        down = self.down
+        n_scales = len(down.emb)
+        points, stack, _, scale_edges, pool_sources = down(pcd)
         inv_sqrt3 = 1.0 / math.sqrt(3.0)
         for i in range(self.n_layers_midstream):
             points = getattr(self, f"mid_layer_{i}")(points, points, scale_edges[-1])
@@ -177,7 +223,7 @@ class UnetFeatureExtractor(nn.Module):
 
         upstream: List[FeaturedPoints] = []
         for n in range(n_scales - 1, -1, -1):
-            for i in range(self.n_layers[n] - 1):
+            for i in range(down.n_layers[n] - 1):
                 saved = stack.pop()
                 dst = saved.replace(f=(points.f + saved.f) * inv_sqrt3)
                 points = getattr(self, f"up_self_layer_{n}_{i}")(points, dst, scale_edges[n])
@@ -187,7 +233,7 @@ class UnetFeatureExtractor(nn.Module):
                 fine, fps_idx = pool_sources[n]
                 # reversed pool edges coarse -> fine; the SH of the negated
                 # vector is the parity-inverted SH of the down edges
-                up_edges = _edges(points, fine, self.radii[n], min(self.k_up[n], points.n), self.sh[n],
+                up_edges = _edges(points, fine, down.radii[n], min(self.k_up[n], points.n), down.sh[n],
                                   exclude_src_owner=fps_idx)
                 dst = FeaturedPoints(x=fine.x, f=saved.f, mask=fine.mask, w=fine.w)
                 points = getattr(self, f"unpool_layer_{n}")(points, dst, up_edges)
@@ -196,3 +242,12 @@ class UnetFeatureExtractor(nn.Module):
             FeaturedPoints(x=p.x, f=getattr(self, f"project_out_{n}")(p.f), mask=p.mask)
             for n, p in enumerate(upstream)
         ]
+
+
+def build_feature_extractor(name: str, kwargs) -> nn.Module:
+    """The extractor a config names in ``feature_extractor_name``."""
+    if name == "UnetFeatureExtractor":
+        return UnetFeatureExtractor(**kwargs)
+    if name == "ForwardOnlyFeatureExtractor":
+        return ForwardOnlyFeatureExtractor(**kwargs)
+    raise ValueError(name)

@@ -1,9 +1,10 @@
 """Query-side models (counterpart of the JAX package's ``models/keypoint.py``):
 learned features and weights at fixed gripper coordinates
 (``StaticKeypointModel``, the pick models), and the learned keypoint
-extractor (``KeypointExtractor``, the place models): a UNet feature
-extractor, FPS-selected query points, and two tensor fields that give each
-query point its features and its weight."""
+extractor (``KeypointExtractor``, the place models' query and the sapien
+models' key): a feature extractor (UNet or forward-only), FPS-selected query
+points, and two tensor fields that give each query point its features and
+its weight."""
 from __future__ import annotations
 
 import math
@@ -17,7 +18,7 @@ from ..data import FeaturedPoints, stack_points
 from ..geom.irreps import Irreps
 from ..nn.radial import Dense, LayerNorm
 from ..ops.neighbors import farthest_point_sampling
-from .extractor import UnetFeatureExtractor
+from .extractor import build_feature_extractor
 from .tensor_field import MultiscaleTensorField
 
 __all__ = ["StaticKeypointModel", "KeypointExtractor"]
@@ -62,14 +63,12 @@ class KeypointExtractor(nn.Module):
         weight_mult: Optional[float] = None,
     ):
         super().__init__()
-        if feature_extractor_name != "UnetFeatureExtractor":
-            raise NotImplementedError(f"{feature_extractor_name} is not ported yet")
         assert weight_activation in ("sigmoid", "softmax"), weight_activation
         self.weight_activation = weight_activation
         self.pool_ratio = float(keypoint_kwargs["pool_ratio"])
         bbox = keypoint_kwargs.get("bbox")
         self.bbox = None if bbox is None else np.asarray(bbox, dtype=np.float32)  # (3, 2)
-        self.feature_extractor = UnetFeatureExtractor(**feature_extractor_kwargs)
+        self.feature_extractor = build_feature_extractor(feature_extractor_name, feature_extractor_kwargs)
         tf = dict(tensor_field_kwargs, irreps_input=feature_extractor_kwargs["irreps_output"],
                   irreps_query=None, edge_context_emb_dim=None)
         self.out_dim = Irreps(tf["irreps_output"]).dim

@@ -1,18 +1,21 @@
-"""Score model assembly and the training loss (counterpart of the JAX
-package's ``models/score_model.py``: ``MultiscaleScoreModel`` and
-``train_loss``): key = UNet extractor, query = static keypoints (pick
-models) or the keypoint extractor (place models), head = the denoising score
-head or, with ``ebm: true`` in the head's config, the energy-based critic
+"""Score model assemblies and the training loss (counterpart of the JAX
+package's ``models/score_model.py``).
+
+``MultiscaleScoreModel``: key = a multiscale feature extractor (UNet, or
+forward-only for the sapien highres models), query = static keypoints (pick
+models) or the keypoint extractor (place models).  ``PointAttentiveScoreModel``
+(the sapien lowres models): key = a ``KeypointExtractor`` whose learned point
+weights become the head's post-attention weights.  The head is the denoising
+score head or, with ``ebm: true`` in its config, the energy-based critic
 head, whose score is the gradient of its energy (``ebm_score``).
 
 A model is built in ``eval()`` mode, which is deterministic (the JAX
 modules' ``deterministic=True``); ``train()`` turns dropout on, with the
 keep masks drawn from the generator given to ``set_dropout_generator``.
 
-``score`` and ``energy`` take one request (poses (nT, 7), the clouds as
-``get_key_pcd_multiscale`` / ``get_query_pcd`` return them) or R requests
-at once (poses (R, nT, 7), every cloud stacked over R by
-``data.stack_points``); one request runs as R = 1."""
+``score`` and ``energy`` take R requests at once: poses (R, nT, 7), times
+(R, nT), and every cloud that ``get_key_pcd_multiscale`` / ``get_query_pcd``
+return for one request stacked over R by ``data.stack_points``."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -20,14 +23,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from ..data import FeaturedPoints, stack_points
+from ..data import FeaturedPoints
 from ..geom.irreps import Irreps
 from ..nn.attention import EDGE_IMPLS, GraphAttention
-from .extractor import UnetFeatureExtractor
+from .extractor import build_feature_extractor
 from .keypoint import KeypointExtractor, StaticKeypointModel
 from .score_head import EbmScoreModelHead, ScoreModelHead, ebm_score
 
-__all__ = ["MultiscaleScoreModel", "train_loss"]
+__all__ = ["MultiscaleScoreModel", "PointAttentiveScoreModel", "train_loss"]
 
 
 def _build_query(query_model: str, query_kwargs: Dict) -> Tuple[nn.Module, Irreps]:
@@ -40,39 +43,18 @@ def _build_query(query_model: str, query_kwargs: Dict) -> Tuple[nn.Module, Irrep
     raise ValueError(query_model)
 
 
-def _stacked(Ts, key_pcd_multiscale, query_pcd, time):
-    """Compatibility shim for the single-request form of ``score`` and
-    ``energy`` ((nT, 7) poses, flat clouds), which only the older tests and
-    ``chip_smoke.py``'s kernel captures still use; the agent always passes the
-    stacked form.  Returns ``(Ts, key clouds, query, time)`` as R = 1 and
-    whether they were wrapped."""
-    if Ts.ndim == 3:
-        return Ts, key_pcd_multiscale, query_pcd, time, False
-    return Ts[None], [stack_points([p]) for p in key_pcd_multiscale], stack_points([query_pcd]), time[None], True
+class _ScoreModel(nn.Module):
+    """What both assemblies share: the query model, the head and the
+    methods around them; a subclass sets ``key_model`` first."""
 
-
-class MultiscaleScoreModel(nn.Module):
-    def __init__(
-        self,
-        query_model: str,
-        score_head_kwargs: Dict,
-        key_kwargs: Dict,
-        query_kwargs: Dict,
-        edge_impl: Optional[str] = None,
-    ):
-        """``edge_impl`` (one of ``nn.attention.EDGE_IMPLS``, or None for the
-        device default) is handed to every ``GraphAttention`` of the model."""
-        super().__init__()
-        fe_name = key_kwargs["feature_extractor_name"]
-        if fe_name != "UnetFeatureExtractor":
-            raise NotImplementedError(f"{fe_name} is not ported yet")
-        fe_kwargs = dict(key_kwargs["feature_extractor_kwargs"])
-        self.key_model = UnetFeatureExtractor(**fe_kwargs)
+    def _build(self, query_model: str, query_kwargs: Dict, score_head_kwargs: Dict, irreps_key,
+               use_src_point_attn: bool, edge_impl: Optional[str]) -> None:
         self.query_model, irreps_query = _build_query(query_model, query_kwargs)
         kw = dict(score_head_kwargs)
         self.use_ebm = bool(kw.pop("ebm", False))
         tf = dict(kw.pop("key_tensor_field_kwargs"))
-        tf["irreps_input"] = Irreps(fe_kwargs["irreps_output"])
+        tf["irreps_input"] = Irreps(irreps_key)
+        tf["use_src_point_attn"] = use_src_point_attn
         self.ang_mult, self.lin_mult = float(kw["ang_mult"]), float(kw["lin_mult"])
         self.score_head = (EbmScoreModelHead if self.use_ebm else ScoreModelHead)(
             max_time=float(kw.pop("max_time")),
@@ -90,6 +72,8 @@ class MultiscaleScoreModel(nn.Module):
         self.eval()
 
     def set_edge_impl(self, edge_impl: Optional[str]) -> None:
+        """``edge_impl`` (one of ``nn.attention.EDGE_IMPLS``, or None for the
+        device default) for every ``GraphAttention`` of the model."""
         assert edge_impl is None or edge_impl in EDGE_IMPLS, edge_impl
         for m in self.modules():
             if isinstance(m, GraphAttention):
@@ -101,32 +85,63 @@ class MultiscaleScoreModel(nn.Module):
             if hasattr(m, "dropout_generator"):
                 m.dropout_generator = generator
 
-    def get_key_pcd_multiscale(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
-        return self.key_model(pcd)
-
     def get_query_pcd(self, pcd: FeaturedPoints) -> FeaturedPoints:
         return self.query_model(pcd)
 
     def score(self, Ts, key_pcd_multiscale, query_pcd, time) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(ang, lin)``, each (nT, 3) for one request, (R, nT, 3) for R.  An
-        EBM model's score is :func:`ebm_score` of its energy."""
-        Ts, key_ms, query, time, one = _stacked(Ts, key_pcd_multiscale, query_pcd, time)
+        """``(ang, lin)``, each (R, nT, 3).  An EBM model's score is
+        :func:`ebm_score` of its energy."""
         if self.use_ebm:
-            ang, lin = ebm_score(lambda T: self.score_head(T, key_ms, query, time), Ts,
-                                 ang_mult=self.ang_mult, lin_mult=self.lin_mult)
-        else:
-            ang, lin = self.score_head(Ts, key_ms, query, time)
-        return (ang[0], lin[0]) if one else (ang, lin)
+            return ebm_score(lambda T: self.score_head(T, key_pcd_multiscale, query_pcd, time), Ts,
+                             ang_mult=self.ang_mult, lin_mult=self.lin_mult)
+        return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
 
     def energy(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
-        """Per-pose energies of an EBM model: (nT,) for one request, (R, nT) for R."""
+        """Per-pose energies of an EBM model, (R, nT)."""
         assert self.use_ebm, "energy() needs a model built with ebm: true"
-        Ts, key_ms, query, time, one = _stacked(Ts, key_pcd_multiscale, query_pcd, time)
-        e = self.score_head(Ts, key_ms, query, time)
-        return e[0] if one else e
+        return self.score_head(Ts, key_pcd_multiscale, query_pcd, time)
 
-    def forward(self, Ts, key_pcd, query_pcd, time):
-        return self.score(Ts, self.get_key_pcd_multiscale(key_pcd), self.get_query_pcd(query_pcd), time)
+
+class MultiscaleScoreModel(_ScoreModel):
+    def __init__(
+        self,
+        query_model: str,
+        score_head_kwargs: Dict,
+        key_kwargs: Dict,
+        query_kwargs: Dict,
+        edge_impl: Optional[str] = None,
+    ):
+        """``edge_impl`` (one of ``nn.attention.EDGE_IMPLS``, or None for the
+        device default) is handed to every ``GraphAttention`` of the model."""
+        super().__init__()
+        fe_kwargs = key_kwargs["feature_extractor_kwargs"]
+        self.key_model = build_feature_extractor(key_kwargs["feature_extractor_name"], fe_kwargs)
+        self._build(query_model, query_kwargs, score_head_kwargs, fe_kwargs["irreps_output"], False, edge_impl)
+
+    def get_key_pcd_multiscale(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
+        return self.key_model(pcd)
+
+
+class PointAttentiveScoreModel(_ScoreModel):
+    """key = a ``KeypointExtractor`` (``key_kwargs``: its arguments); its
+    one cloud carries the point weights ``w`` that the head's attention
+    multiplies into its softmax (``use_src_point_attn``)."""
+
+    def __init__(
+        self,
+        query_model: str,
+        score_head_kwargs: Dict,
+        key_kwargs: Dict,
+        query_kwargs: Dict,
+        edge_impl: Optional[str] = None,
+    ):
+        super().__init__()
+        self.key_model = KeypointExtractor(**key_kwargs)
+        self._build(query_model, query_kwargs, score_head_kwargs, key_kwargs["tensor_field_kwargs"]["irreps_output"],
+                    True, edge_impl)
+
+    def get_key_pcd_multiscale(self, pcd: FeaturedPoints) -> List[FeaturedPoints]:
+        return [self.key_model(pcd)]
 
 
 def train_loss(

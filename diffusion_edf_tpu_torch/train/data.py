@@ -71,6 +71,16 @@ class DemoSequence:
 def _voxel_downsample(pcd: PointCloud, voxel_size: float, coord_reduction: str = "average") -> PointCloud:
     if pcd.n == 0:
         return pcd
+    from .. import native
+
+    res = native.voxel_downsample(pcd.points, pcd.colors, voxel_size, coord_reduction)
+    if res is not None:
+        return PointCloud(points=res[0], colors=res[1])
+    return _voxel_downsample_numpy(pcd, voxel_size, coord_reduction)
+
+
+def _voxel_downsample_numpy(pcd: PointCloud, voxel_size: float, coord_reduction: str = "average") -> PointCloud:
+    """The voxel downsample without the native library (lexicographic voxel order, as the native one)."""
     keys = np.floor(pcd.points / voxel_size).astype(np.int64)
     _, inv, counts = np.unique(keys, axis=0, return_inverse=True, return_counts=True)
     inv = inv.reshape(-1)

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-from ..models.score_model import MultiscaleScoreModel
+from ..models.score_model import MultiscaleScoreModel, PointAttentiveScoreModel
 
 __all__ = ["build_score_model", "DEFAULT_K"]
 
@@ -47,28 +47,29 @@ def build_score_model(
     model_kwargs: Dict,
     k_defaults: Optional[Dict] = None,
     edge_impl: Optional[str] = None,
-) -> MultiscaleScoreModel:
-    """Build a score model from (``model_name``, ``model_kwargs``) as loaded
-    from ``score_model_configs.yaml``.  FPS is deterministic (seeded at the
-    first valid point).  Parameters are uninitialised: load a checkpoint or
-    call :func:`..weights.init_params`."""
-    if model_name != "MultiscaleScoreModel":
-        raise NotImplementedError(f"{model_name} (the sapien family's point-attentive model) is not ported yet")
+):
+    """Build a ``MultiscaleScoreModel`` or a ``PointAttentiveScoreModel``
+    from (``model_name``, ``model_kwargs``) as loaded from
+    ``score_model_configs.yaml``.  FPS is deterministic (seeded at the first
+    valid point).  Parameters are uninitialised: load a checkpoint or call
+    :func:`..weights.init_params`."""
     k = dict(DEFAULT_K)
     if k_defaults:
         k.update(k_defaults)
     mk = dict(model_kwargs)
     sh = dict(mk["score_head_kwargs"])
     sh["key_tensor_field_kwargs"] = _fill_tensor_field(sh["key_tensor_field_kwargs"], k["k_field"])
-    key_kwargs = dict(mk["key_kwargs"])
-    key_kwargs["feature_extractor_kwargs"] = _fill_extractor(key_kwargs["feature_extractor_kwargs"], k)
+    if model_name == "MultiscaleScoreModel":
+        cls = MultiscaleScoreModel
+        key_kwargs = dict(mk["key_kwargs"])
+        key_kwargs["feature_extractor_kwargs"] = _fill_extractor(key_kwargs["feature_extractor_kwargs"], k)
+    elif model_name == "PointAttentiveScoreModel":
+        cls = PointAttentiveScoreModel
+        key_kwargs = _fill_keypoint_kwargs(mk["key_kwargs"], k)
+    else:
+        raise ValueError(f"Unknown model name: {model_name}")
     query_kwargs = mk["query_kwargs"]
     if mk["query_model"] == "KeypointExtractor":
         query_kwargs = _fill_keypoint_kwargs(query_kwargs, k)
-    return MultiscaleScoreModel(
-        query_model=mk["query_model"],
-        score_head_kwargs=sh,
-        key_kwargs=key_kwargs,
-        query_kwargs=query_kwargs,
-        edge_impl=edge_impl,
-    )
+    return cls(query_model=mk["query_model"], score_head_kwargs=sh, key_kwargs=key_kwargs,
+               query_kwargs=query_kwargs, edge_impl=edge_impl)

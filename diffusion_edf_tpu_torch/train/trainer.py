@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import yaml
 
-from ..data import FeaturedPoints
+from ..data import FeaturedPoints, stack_points
 from ..diffusion.diffuse import biequiv_diffusion, random_time
 from ..geom import so3
 from ..models.score_model import train_loss
@@ -264,12 +264,13 @@ class DiffusionEdfTrainer:
         and, for a critic, the energies of the ranked poses (at time 1: the
         critic's energy is time-independent)."""
         m = self.model
-        key_ms = m.get_key_pcd_multiscale(inputs.scene)
-        query = m.get_query_pcd(inputs.grasp)
-        ang, lin = m.score(inputs.Ts, key_ms, query, inputs.times)
+        key_ms = [stack_points([p]) for p in m.get_key_pcd_multiscale(inputs.scene)]  # one request
+        query = stack_points([m.get_query_pcd(inputs.grasp)])
+        ang, lin = m.score(inputs.Ts[None], key_ms, query, inputs.times[None])
+        ang, lin = ang[0], lin[0]
         loss, stats = train_loss(ang, lin, inputs.tgt_ang, inputs.tgt_lin, inputs.times, self.ang_mult, self.lin_mult)
         if self.rank_cfg is not None:
-            E = m.energy(inputs.Ts_rank, key_ms, query, inputs.Ts_rank.new_ones(inputs.Ts_rank.shape[0]))
+            E = m.energy(inputs.Ts_rank[None], key_ms, query, inputs.Ts_rank.new_ones(1, inputs.Ts_rank.shape[0]))[0]
             rloss, racc = rank_loss(E, inputs.badness, self.rank_cfg)
             loss = loss + self.rank_cfg.weight * rloss
             stats.update({"loss/train": loss, "rank/loss": rloss, "rank/pair_acc": racc, "rank/e_target": E[0],

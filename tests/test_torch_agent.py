@@ -84,6 +84,34 @@ def test_tiny_agent_sample_matches_jax(tiny_config_dir):
     assert info["steps"] == [6]
 
 
+def test_tiny_agent_evaluate_matches_jax(tiny_config_dir):
+    """The whole slice: both packages' ``evaluate_agent`` on both agents, one
+    small synthetic demo, the temperature-0 schedule.  The seed poses are the
+    same draws, so the errors agree within the pose gate: with 3 seeds each
+    demo's median and best are sample errors, the means all of them."""
+    from diffusion_edf_tpu.eval import evaluate_agent as j_evaluate
+    from diffusion_edf_tpu.train.synthetic import make_synthetic_demo as j_demo
+    from diffusion_edf_tpu_torch.eval import evaluate_agent as t_evaluate
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_demo as t_demo
+
+    tb = load_model_bundle(tiny_config_dir, device="cpu", n_scene_pad=256, n_grasp_pad=96, init_seed=3)
+    cfg = ge._model_config(tiny=True)
+    jb = JBundle(model=j_build(cfg["model_name"], cfg["model_kwargs"]), params=torch_to_jax_params(tb.model),
+                 ang_mult=tb.ang_mult, lin_mult=tb.lin_mult, n_scene_pad=256, n_grasp_pad=96)
+    kw = dict(task_type="pick", n_seeds=3, diffusion_configs=DIFF_CFG, seed=0)
+    small = dict(n_scene=240, n_grasp=90)  # within the pads after voxelisation
+    rt = t_evaluate(TAgent([tb], PREPROCESS, UNPROCESS), [t_demo(1000, **small)], **kw)
+    rj = j_evaluate(JAgent([jb], PREPROCESS, UNPROCESS), [j_demo(1000, **small)], **kw)
+    assert rt.keys() == rj.keys() and rt["n_samples"] == rj["n_samples"] == 3
+    pairs = [(rt[k]["mean"], rj[k]["mean"]) for k in ("trans_err_cm", "rot_err_deg")]
+    pairs += [(rt["per_demo"][0][k], rj["per_demo"][0][k]) for k in
+              ("trans_err_cm_median", "rot_err_deg_median", "best_trans_err_cm", "best_rot_err_deg")]
+    drift = max(abs(a - b) for a, b in pairs)
+    print(f"tiny agent evaluation, errors port vs JAX: {drift:.3g} (cm and deg)")
+    assert drift <= POSE_GATE
+    assert rt["success_rate"] == rj["success_rate"] and rt["per_demo"][0]["demo"] == rj["per_demo"][0]["demo"]
+
+
 def test_agent_kernel_branch_matches_plain_on_cpu(tiny_config_dir):
     """``edge_impl='kernel'`` on CPU runs the kernel's plain version: same
     rollout as the module path, seeded noise included."""
@@ -104,15 +132,18 @@ CONFIG_FILES = ["train_configs.yaml", "task_configs.yaml", "score_model_configs.
 
 @pytest.mark.parametrize(
     "model,name",
-    [pytest.param("pick_lowres", n, id=n) for n in CONFIG_FILES]
-    + [pytest.param(m, n, id=f"{m}-{n}") for m in ("pick_highres", "pick_ebm", "place_lowres", "place_highres",
-                                                   "place_ebm") for n in CONFIG_FILES]
-    + [pytest.param("", n, id=n) for n in ("server.yaml", "preprocess.yaml")],
+    [pytest.param("panda_mug/pick_lowres", n, id=n) for n in CONFIG_FILES]
+    + [pytest.param(f"panda_mug/{m}", n, id=f"{m}-{n}") for m in ("pick_highres", "pick_ebm", "place_lowres",
+                                                                 "place_highres", "place_ebm") for n in CONFIG_FILES]
+    + [pytest.param("panda_mug", n, id=n) for n in ("server.yaml", "preprocess.yaml")]
+    + [pytest.param(f"sapien/{m}", n, id=f"sapien/{m}-{n}") for m in ("pick_lowres", "pick_highres")
+       for n in CONFIG_FILES],
 )
 def test_port_config_copy_matches_reference(model, name):
     """The port carries its own copy of the pick and place models' config
-    directories and of the family's serving configs."""
-    rel = Path("configs") / "panda_mug" / model / name
+    directories, of the family's serving configs, and of the sapien pick
+    models' config directories."""
+    rel = Path("configs") / model / name
     port, ref = ROOT / "diffusion_edf_tpu_torch" / rel, ROOT / "diffusion_edf_tpu" / rel
     assert port.read_bytes() == ref.read_bytes()
 
@@ -144,6 +175,7 @@ SHIPPED_CHECKPOINTS = [
     ("panda_mug/pick_ebm_fine", 934),
     ("panda_mug/pick_ebm_cascade", 934),
     ("panda_mug/place_ebm_cascade", 1927),
+    ("sapien/pick_lowres", 1034),  # PointAttentiveScoreModel
 ]
 CONFIG_OF = {"panda_mug/pick_ebm_fine": "panda_mug/pick_ebm", "panda_mug/pick_ebm_cascade": "panda_mug/pick_ebm",
              "panda_mug/place_ebm_cascade": "panda_mug/place_ebm"}

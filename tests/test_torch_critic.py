@@ -27,7 +27,7 @@ from diffusion_edf_tpu_torch.train.data import pad_pointcloud
 
 from .test_torch_agent import POSE_GATE, PREPROCESS, UNPROCESS, _clouds
 from .test_torch_model import _inputs
-from .test_torch_tables import t, torch_to_jax_params
+from .test_torch_tables import one_request, t, torch_to_jax_params
 
 torch.set_num_threads(1)
 
@@ -74,14 +74,14 @@ def test_tiny_ebm_energy_matches_jax(tmp_path, edge_impl):
             jb.params, jscene, jnp.asarray(Ts), jnp.asarray(time))
     with torch.no_grad():
         km, q = tmodel.get_key_pcd_multiscale(tscene), tmodel.get_query_pcd(tscene)
-        te = tmodel.energy(t(Ts), km, q, t(time))
+        te = tmodel.energy(*one_request(Ts, km, q, time))[0]
         # the score of an EBM model is the gradient of its energy (ebm_score), which
         # the kernels cannot give: an explicit kernel edge_impl refuses the autograd
         if edge_impl == "plain":
-            tang, tlin = tmodel.score(t(Ts), km, q, t(time))
+            tang, tlin = (s[0] for s in tmodel.score(*one_request(Ts, km, q, time)))
         else:
             with pytest.raises(RuntimeError, match="no backward"):
-                tmodel.score(t(Ts), km, q, t(time))
+                tmodel.score(*one_request(Ts, km, q, time))
     assert te.shape == (3,) and float(te.min()) > 0
     # energies are O(1) sums of squares; 1e-5 holds for the module path and
     # for the fused core's other summation order alike
@@ -132,5 +132,5 @@ def test_tiny_cascade_with_critic_matches_jax(tmp_path):
     with torch.no_grad():
         km = tc.model.get_key_pcd_multiscale(pad_pointcloud(scene_p, 256, "cpu"))
         qq = tc.model.get_query_pcd(pad_pointcloud(grasp_p, 96, "cpu"))
-        again = tc.model.energy(t(traj_t[-1]), km, qq, torch.ones(4)).numpy()
+        again = tc.model.energy(*one_request(traj_t[-1], km, qq, np.ones(4)))[0].numpy()
     np.testing.assert_allclose(again, e_t, atol=1e-5)

@@ -30,7 +30,7 @@ from .test_models import place_config
 from .test_torch_agent import POSE_GATE, PREPROCESS, UNPROCESS, _clouds
 from .test_torch_critic import _bundles
 from .test_torch_model import _inputs
-from .test_torch_tables import t, torch_to_jax_params
+from .test_torch_tables import one_request, t, torch_to_jax_params
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -133,7 +133,7 @@ def test_tiny_place_model_score_matches_jax(place_model, edge_impl):
     scene = TFP(x=t(x), f=t(f), mask=torch.as_tensor(mask))
     with torch.no_grad():
         tkm, tq = tmodel.get_key_pcd_multiscale(scene), tmodel.get_query_pcd(scene)
-        tang, tlin = tmodel.score(t(Ts), tkm, tq, t(time))
+        tang, tlin = (s[0] for s in tmodel.score(*one_request(Ts, tkm, tq, time)))
     for a, b in zip(jkm, tkm):
         np.testing.assert_allclose(a.f, b.f.numpy(), atol=1e-4)
     np.testing.assert_array_equal(jq.mask, tq.mask.numpy())
@@ -157,7 +157,8 @@ def test_tiny_place_critic_energy_matches_jax():
             params, jscene, jnp.asarray(Ts), jnp.asarray(time))
     with torch.no_grad():
         tscene = TFP(x=t(x), f=t(f), mask=torch.as_tensor(mask))
-        te = tmodel.energy(t(Ts), tmodel.get_key_pcd_multiscale(tscene), tmodel.get_query_pcd(tscene), t(time))
+        te = tmodel.energy(*one_request(Ts, tmodel.get_key_pcd_multiscale(tscene), tmodel.get_query_pcd(tscene),
+                                        time))[0]
     assert te.shape == (3,) and float(te.min()) > 0
     # the pick critic's test holds 1e-5; here the query features come out of
     # a tensor field too, one network more (seen 1.3e-5 on energies of 0.56)

@@ -17,7 +17,7 @@ from diffusion_edf_tpu_torch.data import FeaturedPoints as TFP
 from diffusion_edf_tpu_torch.train.factory import build_score_model as t_build
 from diffusion_edf_tpu_torch.weights import init_params, load_params_npz
 
-from .test_torch_tables import t, torch_to_jax_params
+from .test_torch_tables import one_request, t, torch_to_jax_params
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,7 +45,7 @@ def _compare(tmodel, jmodel, params, x, f, mask, Ts, time, atol):
     with torch.no_grad():
         tkm = tmodel.get_key_pcd_multiscale(tscene)
         tq = tmodel.get_query_pcd(tscene)
-        tang, tlin = tmodel.score(t(Ts), tkm, tq, t(time))
+        tang, tlin = (s[0] for s in tmodel.score(*one_request(Ts, tkm, tq, time)))
     assert len(jkm) == len(tkm)
     for a, b in zip(jkm, tkm):
         np.testing.assert_array_equal(np.asarray(a.mask), b.mask.numpy())

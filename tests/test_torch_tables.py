@@ -13,6 +13,7 @@ from diffusion_edf_tpu.geom import cg as jcg
 from diffusion_edf_tpu.geom import irreps as jir
 from diffusion_edf_tpu.nn import edge_kernel as jek
 from diffusion_edf_tpu.nn import tp as jtp
+from diffusion_edf_tpu_torch.data import stack_points
 from diffusion_edf_tpu_torch.geom import cg as tcg
 from diffusion_edf_tpu_torch.geom import irreps as tir
 from diffusion_edf_tpu_torch.nn import edge_kernel as tek
@@ -56,6 +57,13 @@ def jax_to_torch(module: torch.nn.Module, jax_params) -> torch.nn.Module:
 
 def t(x, dtype=torch.float32):
     return torch.as_tensor(np.array(x), dtype=dtype)
+
+
+def one_request(Ts, key_ms, query, time):
+    """The ``score`` / ``energy`` arguments of one request as R = 1: poses
+    (nT, 7) and times (nT,) given as arrays, the clouds as the model's
+    ``get_key_pcd_multiscale`` / ``get_query_pcd`` return them."""
+    return t(Ts)[None], [stack_points([p]) for p in key_ms], stack_points([query]), t(time)[None]
 
 
 # --------------------------------------------------------------------------- #

@@ -41,6 +41,7 @@ from diffusion_edf_tpu.train import synthetic as jsyn
 from diffusion_edf_tpu.train.factory import build_score_model as j_build
 from diffusion_edf_tpu.train.trainer import make_optimizer
 from diffusion_edf_tpu_torch.data import FeaturedPoints as TFP
+from diffusion_edf_tpu_torch.data import stack_points
 from diffusion_edf_tpu_torch.models.edge import st_clamp_min
 from diffusion_edf_tpu_torch.models.score_model import train_loss as t_train_loss
 from diffusion_edf_tpu_torch.nn import attention as tattn
@@ -392,7 +393,8 @@ def test_caches_follow_the_update(tmp_path):
 
     def score(model):
         with torch.no_grad():
-            return model.score(Ts, model.get_key_pcd_multiscale(b.scene), model.get_query_pcd(b.grasp), time)
+            key_ms = [stack_points([p]) for p in model.get_key_pcd_multiscale(b.scene)]
+            return model.score(Ts[None], key_ms, stack_points([model.get_query_pcd(b.grasp)]), time[None])
 
     before = score(tr.model)  # fills the caches
     tr.step(b)
@@ -462,7 +464,9 @@ def test_trainer_end_to_end(tmp_path):
     jang, jlin = jax.jit(jmodel.apply)(jparams, jnp.asarray(Ts), _jfp(b.scene), _jfp(b.grasp), jnp.asarray(time))
     with torch.no_grad():
         port.eval()
-        tang, tlin = port(t(Ts), b.scene, b.grasp, t(time))
+        key_ms = [stack_points([p]) for p in port.get_key_pcd_multiscale(b.scene)]
+        tang, tlin = port.score(t(Ts)[None], key_ms, stack_points([port.get_query_pcd(b.grasp)]), t(time)[None])
+        tang, tlin = tang[0], tlin[0]
     np.testing.assert_allclose(npy(tang), np.asarray(jang), atol=1e-4)
     np.testing.assert_allclose(npy(tlin), np.asarray(jlin), atol=1e-4)
 
