@@ -124,12 +124,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (``ForwardOnlyFeatureExtractor``, seeded weights: no checkpoint ships),
    one score evaluation on ``"kernel"`` against ``"plain"`` within 1e-3 of
    max|score|;
-13. one JSON line listing each kernel, then the card line, then the result
+13. multi-device: two ranks (``multi_device_rank``, spawned) share the one
+   card in a gloo process group (nccl refuses two ranks on one GPU; gloo
+   stages CUDA tensors through the host), the kernels built by phase 1:
+   (a) the ``pick_lowres`` stage of phase 3 with ``DiffusionEdfAgent(mesh=)``,
+   its 32 seeds sharded over the ranks, on ``kernel``: final poses within
+   ``POSE_GATE`` of phase 3's one-process stage (the same seeds and noise),
+   each rank's K1 launches; (b) one score of the shipped ``pick_lowres`` on a
+   (data, model) = (1, 2) mesh, its query rows sharded and then its scene
+   sharded, on ``kernel``, ``fused`` (query rows only: the scene-sharded path
+   must refuse K3) and ``plain``: against this process's replicated score
+   within ``KERNEL_GATE`` (the scene-sharded score only where no query row
+   is cap-bound; the count is reported), the scene-sharded score on
+   ``kernel`` against it on ``plain`` within ``KERNEL_GATE``, kernel launches
+   on every rank; (c) three data-parallel ``pick_lowres`` train steps and one
+   ``pick_ebm`` step, dropout off, against this process running the same
+   steps on the same inputs: each step's loss and the gradients it hands
+   its update (``DiffusionEdfTrainer.apply_grads``) within ``TRAIN_GATES``,
+   rank 0's parameters and EMA after each step equal to this process's
+   update of those gradients (within the gradient gate of each key's
+   largest change), the parameters equal on both ranks after the steps;
+14. one JSON line listing each kernel, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.  A kernel's own keys hold the pick
    tensor field and the launches of the pick path it was first measured on;
    ``by_shape`` holds K1's and K3's records at the pick, place and sapien key
    fields and the keypoint field, ``launches_by_path`` the counts of the
-   other paths.
+   other paths (per rank on the sharded paths).
 
 There is no CPU fallback: without a CUDA device the script exits 1.
 """
@@ -228,6 +248,7 @@ SAPIEN_HIGHRES = os.path.join(ROOT, "diffusion_edf_tpu_torch", "configs", "sapie
 REL_KERNEL_GATE = 3e-4
 POST_WITNESS_GATE = 10 * REL_KERNEL_GATE
 HIGHRES_SCORE_GATE = 1e-3  # one score evaluation of the forward-only model, kernel against plain, of max|score|
+MD_WORLD = 2  # phase 13: two ranks on the one card, over gloo (nccl refuses two ranks on one GPU)
 
 
 class SmokeFailure(Exception):
@@ -1199,6 +1220,285 @@ def sapien_phase(dev) -> dict:
     return summary
 
 
+def dropout_off(model) -> None:
+    """Every dropout rate of ``model`` set to 0, so that ``train()`` mode
+    (which ``DiffusionEdfTrainer.step`` sets) draws no mask."""
+    from diffusion_edf_tpu_torch.nn.attention import GraphAttention
+    from diffusion_edf_tpu_torch.nn.layers import EquivariantDropout
+
+    for m in model.modules():
+        if isinstance(m, GraphAttention):
+            m.alpha_drop = 0.0
+        elif isinstance(m, EquivariantDropout):
+            m.rate = 0.0
+
+
+def sharded_model(model_cfg, dev, edge_impl, **axes):
+    """``pick_lowres`` from the shipped checkpoint, built with the mesh axis
+    names ``axes`` (``query_shard_axes`` or ``scene_axis_name``)."""
+    from diffusion_edf_tpu_torch.train.factory import build_score_model
+    from diffusion_edf_tpu_torch.weights import load_params_npz
+
+    model = build_score_model(model_cfg["model_name"], model_cfg["model_kwargs"], edge_impl=edge_impl, **axes)
+    return load_params_npz(model, CHECKPOINT).to(dev).eval()
+
+
+def score_inputs(bundle, dev):
+    """Phase 13b's score inputs, as ``run`` makes them for phase 2: the
+    preprocessed scene's key scales and the query, stacked as one request,
+    32 poses (cm) and their time."""
+    import torch
+
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent
+    from diffusion_edf_tpu_torch.train.data import pad_pointcloud
+    from diffusion_edf_tpu_torch.train.trainer import load_configs
+
+    scene, grasp = scene_clouds()
+    scene_p, grasp_p = DiffusionEdfAgent([bundle], load_configs(CONFIG)[0]["preprocess_config"], UNPROCESS,
+                                         preprocess_seed=0)._prep(scene, grasp)
+    with torch.no_grad():
+        key_ms = bundle.model.get_key_pcd_multiscale(pad_pointcloud(scene_p, bundle.n_scene_pad, dev))
+        query = bundle.model.get_query_pcd(pad_pointcloud(grasp_p, bundle.n_grasp_pad, dev))
+    T = torch.as_tensor(seed_poses(N_SEEDS), device=dev)
+    T = torch.cat([T[:, :4], T[:, 4:] * 100.0], dim=-1)  # metres -> cm
+    return one_request(T, key_ms, query, torch.full((N_SEEDS,), 0.3, device=dev))
+
+
+def multi_device_rank(rank: int, world: int, run_dir: str, device_type: str = "cuda") -> None:
+    """One rank of phase 13 (see the module docstring): ``world`` ranks
+    share the one card in a gloo group; each saves its numbers to
+    ``run_dir``.  (``device_type="cpu"`` rehearses it on the host.)"""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, load_model_bundle
+    from diffusion_edf_tpu_torch.parallel.distributed import initialize_distributed
+    from diffusion_edf_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from diffusion_edf_tpu_torch.parallel.sharded import make_sharded_train_step, scene_sharded_score_fn
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer, load_configs
+    from diffusion_edf_tpu_torch.weights import flat_arrays
+
+    torch.set_num_threads(2)
+    initialize_distributed(f"file://{run_dir}/rendezvous", world, rank, device=device_type, backend="gloo")
+    dev = torch.device(device_type)
+    out = {"backend": dist.get_backend(), "device": str(torch.empty(0, device=dev).device)}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    train_cfg, _, model_cfg = load_configs(CONFIG)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        r = fn()
+        sync()
+        return r, time.perf_counter() - t
+
+    # ---- 13a: the pick_lowres stage, seeds sharded over data ----
+    mesh = make_mesh()
+    bundle = load_model_bundle(CONFIG, CHECKPOINT, device=dev)
+    scene, grasp = scene_clouds()
+
+    def agent():
+        return DiffusionEdfAgent([bundle], train_cfg["preprocess_config"], UNPROCESS, preprocess_seed=0, mesh=mesh)
+
+    agent().sample(scene, grasp, seed_poses(N_SEEDS)[:4], generator=gen(9), record_trajectory=False,
+                   **dict(SCHEDULE, N_steps_list=[[1, 1]]))  # warm-up
+    reset_counters()
+    (traj, _, _, info), wall = timed(lambda: agent().sample(scene, grasp, seed_poses(N_SEEDS), generator=gen(1),
+                                                            **SCHEDULE))
+    out["13a"] = dict(final=traj[-1], launches=counters(), steps=info["steps"][0], rollout_s=info["rollout_s"][0],
+                      wall_s=wall)
+
+    # ---- 13b: one score step, query rows and then the scene sharded, on kernel and plain ----
+    mesh2 = make_mesh(axis_names=("data", "model"), shape=(1, world))
+    T, key_ms, query, time_vec = score_inputs(bundle, dev)
+    out["13b"] = {}
+    for impl in ("kernel", "fused", "plain"):
+        mq = sharded_model(model_cfg, dev, impl, query_shard_axes=["data", "model"])
+        ms = sharded_model(model_cfg, dev, impl, scene_axis_name="model")
+        scene_fn = scene_sharded_score_fn(mesh2, ms, key_ms, query)
+        rec = {}
+        with torch.no_grad():
+            paths = [("query", lambda: mq.score(T, key_ms, query, time_vec))]
+            if impl == "fused":  # K3 holds the whole softmax: the scene-sharded path must refuse it
+                try:
+                    scene_fn(T, time_vec)
+                    rec["scene_refused"] = False
+                except RuntimeError:
+                    rec["scene_refused"] = True
+            else:
+                paths.append(("scene", lambda: scene_fn(T, time_vec)))
+            for name, fn in paths:
+                with use_mesh(mesh2):
+                    fn()
+                    reset_counters()
+                    score, s = timed(fn)
+                    launched = counters()
+                    _, s2 = timed(fn)
+                rec[name] = dict(ang=score[0].cpu(), lin=score[1].cpu(), launches=launched, ms=[s * 1e3, s2 * 1e3])
+        out["13b"][impl] = rec
+        del mq, ms
+
+    # ---- 13c: data-parallel train steps, dropout off ----
+    demos = make_synthetic_dataset(n_demos=2, seed=0)
+    for name, n_steps in (("pick_lowres", 3), ("pick_ebm", 1)):
+        tr = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(run_dir, f"{name}_{rank}"),
+                                 n_scene_pad=2048, n_grasp_pad=512, device=dev, seed=0)
+        tr.init(demos, checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
+        dropout_off(tr.model)
+        step = make_sharded_train_step(mesh, tr)
+        applied = []  # the gradients each step hands its update
+        apply_grads = tr.apply_grads
+        tr.apply_grads = lambda grads: (applied.append([g.detach().clone() for g in grads]), apply_grads(grads))
+        records = []
+        for i in range(n_steps):
+            batch = tr.batches[i % len(tr.batches)]
+            state = tr.generator.get_state()
+            inputs = tr.draw_step(batch)
+            tr.generator.set_state(state)  # the step draws the same inputs again
+            stats, s = timed(lambda: step(batch))
+            records.append(dict(inputs=inputs.to("cpu"), step_loss=stats["loss/train"],
+                                grads=[g.cpu() for g in applied.pop()], params=flat_arrays(tr.model),
+                                ema=flat_arrays(tr.model, tr.ema), step_ms=s * 1e3))
+        digest = hashlib.sha256(b"".join(v.tobytes() for _, v in sorted(flat_arrays(tr.model).items()))).hexdigest()
+        out[name] = dict(records=records if rank == 0 else [dict(step_ms=r["step_ms"]) for r in records],
+                         params_sha256=digest)
+        del tr
+    torch.save(out, os.path.join(run_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def multi_device_phase(dev, lowres_final: np.ndarray) -> dict:
+    """Phase 13: two ranks on the card (``multi_device_rank``) against this
+    process's single-process runs; returns the numbers."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from diffusion_edf_tpu_torch.agent import load_model_bundle
+    from diffusion_edf_tpu_torch.parallel.sharded import cap_bound_rows, valid_points_by_block
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer, load_configs
+    from diffusion_edf_tpu_torch.weights import flat_arrays
+
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip() if dev.type == "cuda" else "none (host)"
+    log(f"phase 13: {MD_WORLD} ranks on {dev} over gloo (nccl refuses two ranks on one card); compute mode {mode}")
+    if "Exclusive" in mode:
+        raise SmokeFailure(f"phase 13: the card's compute mode ({mode}) refuses a second process")
+    run_dir = os.path.join(ROOT, "build", "multi_device")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    mp.spawn(multi_device_rank, args=(MD_WORLD, run_dir, dev.type), nprocs=MD_WORLD, join=True)
+    ranks = [torch.load(os.path.join(run_dir, f"rank{r}.pt"), weights_only=False) for r in range(MD_WORLD)]
+    log(f"  ranks done in {time.perf_counter() - t0:.1f} s; backend {[r['backend'] for r in ranks]}, "
+        f"device {[r['device'] for r in ranks]}")
+    summary = {}
+
+    # ---- 13a ----
+    a = [r["13a"] for r in ranks]
+    drift = max(float(np.abs(x["final"] - lowres_final).max()) for x in a)
+    steps = a[0]["steps"]
+    summary["seed_sharded_stage"] = dict(drift=drift, launches=[x["launches"]["edge_kernel"] for x in a],
+                                         rollout_s=[x["rollout_s"] for x in a], steps=steps)
+    log(f"13a: pick_lowres stage, {N_SEEDS} seeds sharded over {MD_WORLD} ranks x {steps} steps on kernel: final-pose "
+        f"drift against the one-process stage (phase 3, same seeds and noise) {drift:.3g} (gate {POSE_GATE}); "
+        f"K1 launches by rank {[x['launches']['edge_kernel'] for x in a]}; rollout "
+        f"{[round(x['rollout_s'], 2) for x in a]} s ({[round(N_SEEDS * steps / x['rollout_s'], 1) for x in a]} "
+        f"pose-steps/s by the whole batch)")
+    if not drift <= POSE_GATE or any(not np.isfinite(x["final"]).all() for x in a):
+        raise SmokeFailure("13a: the seed-sharded stage drifts from the one-process stage")
+    if any(x["launches"]["edge_kernel"] <= 0 for x in a):
+        raise SmokeFailure("13a: a rank launched no K1")
+
+    # ---- 13b ----
+    _, _, model_cfg = load_configs(CONFIG)
+    bundle = load_model_bundle(CONFIG, CHECKPOINT, device=dev)
+    T, key_ms, query, time_vec = score_inputs(bundle, dev)
+    cap = cap_bound_rows(bundle.model, T, key_ms, query)
+    n_rows = int(query.mask.sum()) * N_SEEDS
+    summary["sharded_score"] = {"cap_bound_rows": cap, "rows": n_rows}
+    counter = dict(kernel="edge_kernel", fused="fused_attention", plain="edge_kernel")
+    for impl in ("kernel", "fused", "plain"):
+        bundle.model.set_edge_impl(impl)
+        with torch.no_grad():
+            ref = [s.cpu() for s in bundle.model.score(T, key_ms, query, time_vec)]
+        for name in ("query", "scene") if impl != "fused" else ("query",):
+            res = [r["13b"][impl][name] for r in ranks]
+            err = max(float((x[k] - ref[i]).abs().max()) for x in res for i, k in enumerate(("ang", "lin")))
+            scale = max(float(s.abs().max()) for s in ref)
+            n_launch = [x["launches"][counter[impl]] for x in res]
+            summary["sharded_score"][f"{name}_{impl}"] = dict(err=err, max_abs=scale, ms=[x["ms"] for x in res],
+                                                              launches=n_launch)
+            log(f"13b: {name}-sharded score on {impl} ({MD_WORLD} ranks) against the replicated score on {impl}: "
+                f"max-abs {err:.3g} (max|score| {scale:.3g}; gate {KERNEL_GATE}); ms by rank {[x['ms'] for x in res]}; "
+                f"{counter[impl]} launches by rank {n_launch}")
+            if impl != "plain" and min(n_launch) <= 0:
+                raise SmokeFailure(f"13b: the {name}-sharded score on {impl} launched no kernel on a rank")
+            if (name == "query" or cap == 0) and not err <= KERNEL_GATE:
+                raise SmokeFailure(f"13b: the {name}-sharded score differs from the replicated score")
+    if not all(r["13b"]["fused"]["scene_refused"] for r in ranks):
+        raise SmokeFailure("13b: the scene-sharded path ran on fused, whose kernel holds the whole softmax")
+    k = [r["13b"]["kernel"]["scene"] for r in ranks]
+    p = [r["13b"]["plain"]["scene"] for r in ranks]
+    err_kp = max(float((x[n] - y[n]).abs().max()) for x, y in zip(k, p) for n in ("ang", "lin"))
+    summary["sharded_score"]["scene_kernel_vs_plain"] = err_kp
+    blocks = valid_points_by_block(bundle.model, key_ms, MD_WORLD)
+    summary["sharded_score"]["valid_points_by_block"] = blocks
+    log(f"13b: {cap} of {n_rows} query rows are cap-bound at some scale; valid key points of each scale by scene "
+        f"block {blocks}; the scene-sharded score on kernel against the scene-sharded score on plain: {err_kp:.3g} "
+        f"(gate {KERNEL_GATE})")
+    if not err_kp <= KERNEL_GATE:
+        raise SmokeFailure("13b: K1 differs from plain on the scene-sharded path")
+    del bundle
+
+    # ---- 13c ----
+    loss_gate, grad_gate = TRAIN_GATES
+    demos = make_synthetic_dataset(n_demos=2, seed=0)
+    for name in ("pick_lowres", "pick_ebm"):
+        tr = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(run_dir, f"{name}_one"),
+                                 n_scene_pad=2048, n_grasp_pad=512, device=dev, seed=0)
+        tr.init(demos, checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
+        dropout_off(tr.model)
+        recs, worst, worst_update = [], (0.0, ""), (0.0, "")
+        for rec in ranks[0][name]["records"]:  # this trainer runs the same steps on its own parameters
+            before, ema_before = flat_arrays(tr.model), flat_arrays(tr.model, tr.ema)
+            tr.model.train()
+            loss, _, grads = tr.loss_and_grads(rec["inputs"].to(dev))
+            one = flat_arrays(tr.model, grads)
+            for k, g in flat_arrays(tr.model, rec["grads"]).items():
+                worst = max(worst, (float(np.abs(g - one[k]).max()) / (float(np.abs(one[k]).max()) or 1.0), k))
+            tr.apply_grads([g.to(dev) for g in rec["grads"]])
+            for got, old_, new_ in ((rec["params"], before, flat_arrays(tr.model)),
+                                    (rec["ema"], ema_before, flat_arrays(tr.model, tr.ema))):
+                for k, v in new_.items():
+                    moved = float(np.abs(v - old_[k]).max()) or 1.0
+                    worst_update = max(worst_update, (float(np.abs(got[k] - v).max()) / moved, k))
+            loss_rel = abs(rec["step_loss"] - float(loss.detach())) / abs(float(loss.detach()))
+            recs.append(dict(loss=rec["step_loss"], loss_one=float(loss.detach()), loss_rel=loss_rel))
+        same = len({r[name]["params_sha256"] for r in ranks}) == 1
+        step_ms = [[x["step_ms"] for x in r[name]["records"]] for r in ranks]
+        summary[f"dp_{name}"] = dict(steps=recs, grad_worst=worst[0], grad_worst_key=worst[1],
+                                     update_worst=worst_update[0], update_worst_key=worst_update[1],
+                                     params_equal=same, step_ms=step_ms)
+        log(f"13c: {name}, {len(recs)} data-parallel steps over {MD_WORLD} ranks against one process's steps on the "
+            f"same inputs: the step's loss relative {[f'{x['loss_rel']:.3g}' for x in recs]} (gate {loss_gate}); "
+            f"worst gradient the step's update was given {worst[0]:.3g} of its key's max at {worst[1]} (gate "
+            f"{grad_gate}); rank 0's parameters and EMA after each step against this process's update of those "
+            f"gradients {worst_update[0]:.3g} of the key's largest change at {worst_update[1]} (gate {grad_gate}); "
+            f"parameters equal on every rank after the steps: {same}; ms a step by rank {step_ms}")
+        if not (all(x["loss_rel"] <= loss_gate for x in recs) and worst[0] <= grad_gate
+                and worst_update[0] <= grad_gate and same):
+            raise SmokeFailure(f"13c: the data-parallel {name} step differs from one process's")
+        del tr
+    return summary
+
+
 def reset_counters() -> None:
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
@@ -1811,6 +2111,11 @@ def run() -> int:
     t = time.perf_counter()
     sapien = sapien_phase(dev)
     log(f"phase 12: {time.perf_counter() - t:.1f} s; sapien summary {json.dumps(sapien)}")
+
+    # ---- phase 13: multi-device, two ranks on the card ----
+    t = time.perf_counter()
+    multi = multi_device_phase(dev, final)
+    log(f"phase 13: {time.perf_counter() - t:.1f} s; multi-device summary {json.dumps(multi)}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     src = "diffusion_edf_tpu_torch/csrc/"
@@ -1825,7 +2130,10 @@ def run() -> int:
              launches_by_path=dict(pick_lowres_stage=launches, place_request=count8["edge_kernel"],
                                    eval_pick_cascade=evaluation["pick"]["launches"]["edge_kernel"],
                                    eval_place_cascade=evaluation["place"]["launches"]["edge_kernel"],
-                                   sapien_lowres_stage=sapien["stage"]["launches"]["kernel"]["edge_kernel"]),
+                                   sapien_lowres_stage=sapien["stage"]["launches"]["kernel"]["edge_kernel"],
+                                   seed_sharded_stage_by_rank=multi["seed_sharded_stage"]["launches"],
+                                   query_sharded_score_by_rank=multi["sharded_score"]["query_kernel"]["launches"],
+                                   scene_sharded_score_by_rank=multi["sharded_score"]["scene_kernel"]["launches"]),
              by_shape={n: k1[n] for n in shapes}, **k1["tensor_field"]),
         dict(name="edge_kernel_bf16", route="cuda", source=src + "edge_kernel.cu",
              replaces="diffusion_edf_tpu/nn/edge_kernel.py:568", launches=count5["edge_kernel_bf16"],
@@ -1834,7 +2142,8 @@ def run() -> int:
              replaces="diffusion_edf_tpu/nn/fused_attention.py:331", launches=count4["fused_attention"],
              max_abs_err=k3_err, launches_by_path=dict(
                  pick_request=count4["fused_attention"], place_request=count8f["fused_attention"],
-                 sapien_lowres_stage=sapien["stage"]["launches"]["fused"]["fused_attention"]),
+                 sapien_lowres_stage=sapien["stage"]["launches"]["fused"]["fused_attention"],
+                 query_sharded_score_by_rank=multi["sharded_score"]["query_fused"]["launches"]),
              by_shape={n: k3[n] for n in shapes}, **k3["tensor_field"]),
     ]
     print(json.dumps({"kernels": kernels}))

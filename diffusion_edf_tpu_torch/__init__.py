@@ -9,7 +9,10 @@ jax, flax or the JAX package.
 It covers the pick and place requests (``agent``: the cascades and their
 EBM critics), serving (``serve``), training (``train.trainer``, the
 command line ``train.cli``) and evaluation (``eval``), for the panda and
-sapien model families.  At inference the per-edge segment of every
+sapien model families; multi-device sampling, scoring and training over
+``torch.distributed`` (``parallel``); the import of reference torch
+checkpoints (``importer``), pose plots (``visualize``) and profiling
+(``utils.profiling``).  At inference the per-edge segment of every
 ``GraphAttention`` runs through the hand-written CUDA kernels of ``csrc/``
 (:mod:`.nn.edge_kernel`, :mod:`.nn.fused_attention`); training runs the
 plain PyTorch path, since the kernels have no backward.

@@ -9,6 +9,11 @@ score evaluation per Langevin step for all of them: the request axis is
 folded into the rows of the key tensor field (each query point still attends
 only to its own request's key points), so the edge kernels see R times the
 rows of one request.  ``sample`` is ``sample_batch`` of one request.
+
+Given a mesh, each Langevin rollout is seed-sharded over its ``data`` axis
+(``parallel/sharded.py::sharded_langevin_sample``): every rank extracts the
+features, rolls out its block of every request's seeds and gathers the
+final poses; the critic and the next stage see all of them.
 """
 from __future__ import annotations
 
@@ -22,6 +27,8 @@ import torch
 from .data import stack_points
 from .diffusion.langevin import build_schedule, langevin_sample
 from .nn import cuda_build
+from .parallel.mesh import Mesh
+from .parallel.sharded import sharded_langevin_sample
 from .train.data import PointCloud, TargetPoseDemo, compose_proc_fn, pad_pointcloud
 from .train.factory import build_score_model
 from .train.trainer import load_configs
@@ -83,10 +90,17 @@ class DiffusionEdfAgent:
         unprocess_config: Sequence[Dict],
         preprocess_seed: Optional[int] = None,
         critic: Optional[ModelBundle] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``preprocess_seed`` seeds the jitter ops of the preprocessing;
-        ``critic`` is an EBM model whose energy orders the sampled poses."""
+        ``critic`` is an EBM model whose energy orders the sampled poses;
+        ``mesh`` shards the seeds of every rollout over its ``data`` axis
+        (every rank of the mesh calls :meth:`sample` with the same
+        arguments and a generator in the same state, and gets the same
+        result: one process's on the seeds padded to a multiple of the axis
+        size)."""
         self.models = list(models)
+        self.mesh = mesh
         self.critic = critic
         self.proc_fn = compose_proc_fn(preprocess_config, seed=preprocess_seed)
         self.unrescale = 1.0  # the unprocess pipeline is a rescale (cm -> m) of poses
@@ -187,7 +201,7 @@ class DiffusionEdfAgent:
         T = None
         for mi, bundle in enumerate(self.models):
             model, dev = bundle.model, bundle.device
-            T = torch.as_tensor(T0.reshape(R * nT, 7), device=dev) if T is None else T.to(dev)
+            T = torch.as_tensor(T0, device=dev) if T is None else T.to(dev)
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(int(np.random.randint(0, 2**31 - 1)))
             t0 = time.perf_counter()
@@ -202,17 +216,20 @@ class DiffusionEdfAgent:
             )
 
             def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
-                ang, lin = model.score(Ts.reshape(R, nT, 7), key_ms, query, t.reshape(R, nT))
-                return ang.reshape(R * nT, 3), lin.reshape(R * nT, 3)
+                return model.score(Ts, key_ms, query, t)
 
-            T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
-                                      generator=generator, record_trajectory=record_trajectory)
+            if self.mesh is None:
+                T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
+                                          generator=generator, record_trajectory=record_trajectory)
+            else:
+                T, traj = sharded_langevin_sample(self.mesh, score_fn, generator, T, sched, bundle.ang_mult,
+                                                  bundle.lin_mult, record_trajectory=record_trajectory)
             _sync(dev)
             info["extract_s"].append(t1 - t0)
             info["rollout_s"].append(time.perf_counter() - t1)
             info["steps"].append(len(sched.t))
             traj = traj if record_trajectory else T[None]
-            trajs.append(traj.reshape(-1, R, nT, 7).transpose(0, 1).cpu().numpy())
+            trajs.append(traj.transpose(0, 1).cpu().numpy())
         Ts_out = np.concatenate(trajs, axis=1)  # (R, steps + stages, nT, 7)
         if self.critic is not None:
             c = self.critic

@@ -6,7 +6,7 @@ renormalised every step."""
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,33 +51,46 @@ def build_schedule(
 
 def langevin_sample(
     score_fn,
-    T_seed: torch.Tensor,  # (nT, 7)
+    T_seed: torch.Tensor,  # ([R,] nT, 7)
     schedule: LangevinSchedule,
     ang_mult: float,
     lin_mult: float,
     generator: Optional[torch.Generator] = None,
     record_trajectory: bool = True,
+    seed_block: Optional[Tuple[int, int]] = None,
 ):
-    """``score_fn(Ts (nT, 7), time (nT,)) -> (ang, lin)`` is the
+    """``score_fn(Ts ([R,] nT, 7), time ([R,] nT)) -> (ang, lin)`` is the
     dimensionless network output, unscaled here by ``1 / (mult * sqrt(t))``.
-    Noise comes from ``generator`` (on the pose tensor's device).  Returns
-    the final poses and, if asked, the trajectory (S + 1, nT, 7)."""
+    Noise comes from ``generator`` (on the pose tensor's device), one
+    block of the poses' shape for the angular part, then one for the linear
+    part, each step.  ``seed_block = (n, start)``: ``T_seed`` holds the
+    seeds ``start:start + nT`` of an ``n``-seed batch (the seed axis is the
+    second to last); the noise is drawn for all ``n`` and this block kept,
+    so the block moves as it does in the rollout of the whole batch.
+    Returns the final poses and, if asked, the trajectory (S + 1, [R,] nT,
+    7)."""
     T = T_seed.to(torch.float32)
-    nT = T.shape[0]
     traj = [T] if record_trajectory else None
     f32 = np.float32
+
+    def noise(like: torch.Tensor) -> torch.Tensor:
+        if seed_block is None:
+            return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+        shape = list(like.shape)
+        shape[-2] = seed_block[0]
+        return torch.randn(shape, generator=generator, dtype=like.dtype, device=like.device).narrow(
+            -2, seed_block[1], like.shape[-2])
+
     for t, a_ang, a_lin, temp in zip(*(v.astype(f32) for v in schedule)):
-        ang, lin = score_fn(T, torch.full((nT,), float(t), dtype=T.dtype, device=T.device))
+        ang, lin = score_fn(T, torch.full(T.shape[:-1], float(t), dtype=T.dtype, device=T.device))
         sqrt_t = float(np.sqrt(t))
         ang = ang / float(f32(ang_mult) * f32(sqrt_t))
         lin = lin / float(f32(lin_mult) * f32(sqrt_t))
         ang_disp = float(a_ang / f32(2.0)) * ang
         lin_disp = float(a_lin / f32(2.0)) * lin
         if temp > 0:
-            ang_disp = ang_disp + float(np.sqrt(temp * a_ang)) * torch.randn(
-                ang.shape, generator=generator, dtype=T.dtype, device=T.device)
-            lin_disp = lin_disp + float(np.sqrt(temp * a_lin)) * torch.randn(
-                lin.shape, generator=generator, dtype=T.dtype, device=T.device)
+            ang_disp = ang_disp + float(np.sqrt(temp * a_ang)) * noise(ang)
+            lin_disp = lin_disp + float(np.sqrt(temp * a_lin)) * noise(lin)
         q, x = T[..., :4], T[..., 4:]
         dq = torch.einsum("...ia,...a->...i", quat_L(q), ang_disp)
         dx = so3.quaternion_apply(q, lin_disp)

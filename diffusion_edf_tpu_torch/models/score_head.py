@@ -11,10 +11,21 @@ The score head combines field and query features into prescore vectors with
 two SeparableFCTPs; frame change, orbital term and query-weighted sums give
 (ang, lin).  The critic head takes the query-weighted mean squared difference
 of field and moved query features as the energy of each pose.
+
+With ``query_shard_axes`` (e.g. ``("data", "model")``), the nT*nQ query
+rows of every request are split into contiguous blocks over those axes of
+the active mesh (``parallel/mesh.py::use_mesh``), padded to a multiple of
+the shard count as ``shard_batch`` pads: each rank evaluates the
+tensor field and the prescore products on its rows against the replicated
+scene, and the per-pose sums over query points add the ranks' partial sums
+(``reduce_from_shards``); the poses enter the per-row work through
+``copy_to_shards``, so the critic's score (the gradient of its energy)
+sums every rank's share.  The padding rows are dropped before the sums.
+Up to summation order, the result is the unsharded one.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +37,7 @@ from ..geom.irreps import Irreps
 from ..nn.radial import Dense, SinusoidalPositionEmbeddings
 from ..nn.tp_modules import SeparableFCTP
 from ..nn.util import constant
+from ..parallel.mesh import copy_to_shards, current_mesh, reduce_from_shards, shard_batch
 from .tensor_field import MultiscaleTensorField
 
 __all__ = ["ScoreModelHead", "EbmScoreModelHead", "ebm_score", "quat_L", "QUAT_L_INDICES", "QUAT_L_FACTOR"]
@@ -75,8 +87,10 @@ class _FieldHead(nn.Module):
         time_enc_n: float = 10000.0,
         edge_time_encoding: bool = True,
         query_time_encoding: bool = False,
+        query_shard_axes: Optional[Sequence[str]] = None,
     ):
         super().__init__()
+        self.query_shard_axes = tuple(query_shard_axes) if query_shard_axes else None
         assert not query_time_encoding, "query time encoding is not ported yet (no config in the tree sets it)"
         self.lin_mult, self.ang_mult = lin_mult, ang_mult
         self.edge_time_encoding = edge_time_encoding
@@ -92,6 +106,30 @@ class _FieldHead(nn.Module):
         if edge_time_encoding:
             self.time_mlps = nn.ModuleList(_TimeMLP(time_emb_mlp) for _ in range(self.n_scales))
 
+    def _group(self):
+        """The process group that shares the query rows (None unsharded)."""
+        return current_mesh().group(self.query_shard_axes) if self.query_shard_axes else None
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the pose-major nT*nQ query rows (axis 1 of
+        ``x``), the rows padded to a multiple of the shard count as
+        ``shard_batch`` pads; ``x`` itself without ``query_shard_axes``."""
+        if not self.query_shard_axes:
+            return x
+        return shard_batch(current_mesh(), x, self.query_shard_axes, dim=1)[0]
+
+    def _all_rows(self, x: torch.Tensor, nT: int, nQ: int) -> torch.Tensor:
+        """(R, rows of this rank, ...) -> (R, nT, nQ, ...): every row, zeros
+        on the other ranks' rows (and the padding dropped)."""
+        r, rest = x.shape[0], x.shape[2:]
+        if self.query_shard_axes:
+            mesh = current_mesh()
+            blk, a = x.shape[1], mesh.index(self.query_shard_axes) * x.shape[1]
+            n_pad = blk * mesh.axis_size(self.query_shard_axes)
+            x = torch.cat([x.new_zeros(r, a, *rest), x, x.new_zeros(r, n_pad - a - blk, *rest)], dim=1)
+            x = x.narrow(1, 0, nT * nQ)
+        return x.reshape(r, nT, nQ, *rest)
+
     def field_at_poses(
         self,
         Ts: torch.Tensor,  # (R, nT, 7)
@@ -99,28 +137,30 @@ class _FieldHead(nn.Module):
         query_pcd: FeaturedPoints,  # stacked over R
         time: torch.Tensor,  # (R, nT)
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(key_features (R*nT*nQ, Fk), f_t (R*nT*nQ, Fq))``: the key field
-        at the moved query points and the rotated query features, every
-        request's poses moving its own query cloud in its own key field."""
+        """``(key_features (R*n, Fk), f_t (R*n, Fq))`` on this rank's n of
+        every request's nT*nQ query rows (pose-major; all of them without
+        ``query_shard_axes``): the key field at the moved query points and
+        the rotated query features, every request's poses moving its own
+        query cloud in its own key field."""
         assert Ts.ndim == 3 and Ts.shape[-1] == 7
         r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
         time_enc = self.time_enc(time)
         q = Ts[..., :4]
         x_t = so3.transform_points(query_pcd.x[:, None], Ts)  # (R, nT, nQ, 3)
         f_t = wigner.rotate_irreps(self.irreps_query, query_pcd.f, q)  # (R, nT, nQ, Fq)
+        x_rows = self._rows(x_t.reshape(r, nT * nQ, 3))
         query_moved = FeaturedPoints(
-            x=x_t.reshape(r, nT * nQ, 3),
-            f=Ts.new_zeros(r, nT * nQ, 0),
-            mask=query_pcd.mask[:, None, :].expand(r, nT, nQ).reshape(r, nT * nQ),
+            x=x_rows,
+            f=Ts.new_zeros(r, x_rows.shape[1], 0),
+            mask=self._rows(query_pcd.mask[:, None, :].expand(r, nT, nQ).reshape(r, nT * nQ)),
         )
         ctx = None
         if self.edge_time_encoding:
-            ctx = [
-                mlp(time_enc)[:, :, None, :].expand(r, nT, nQ, self.time_emb_dim).reshape(r * nT * nQ, -1)
-                for mlp in self.time_mlps
-            ]
+            D = self.time_emb_dim
+            ctx = [self._rows(mlp(time_enc)[:, :, None, :].expand(r, nT, nQ, D).reshape(r, nT * nQ, D)).reshape(-1, D)
+                   for mlp in self.time_mlps]
         key_features = self.key_tensor_field(query_moved, key_pcd_multiscale, context_emb=ctx).f
-        return key_features, f_t.reshape(r * nT * nQ, -1)
+        return key_features, self._rows(f_t.reshape(r, nT * nQ, -1)).reshape(r * x_rows.shape[1], -1)
 
 
 class ScoreModelHead(_FieldHead):
@@ -140,13 +180,13 @@ class ScoreModelHead(_FieldHead):
         """``(ang (R, nT, 3), lin (R, nT, 3))`` score of every pose of every
         request (see :meth:`field_at_poses`)."""
         r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
-        q = Ts[..., :4]
+        group = self._group()
+        Ts = copy_to_shards(Ts, group)
         key_features, f_t_flat = self.field_at_poses(Ts, key_pcd_multiscale, query_pcd, time)
-        lin_vel, ang_spin = (tp(key_features, f_t_flat)[..., 1:] for tp in self.vel_tps)
-        lin_vel = lin_vel.reshape(r, nT, nQ, self.n_pre, 3).mean(dim=-2)
-        ang_spin = ang_spin.reshape(r, nT, nQ, self.n_pre, 3).mean(dim=-2)
+        lin_vel, ang_spin = (self._all_rows(tp(key_features, f_t_flat)[..., 1:].reshape(r, -1, self.n_pre, 3)
+                                            .mean(dim=-2), nT, nQ) for tp in self.vel_tps)
 
-        qinv = so3.quaternion_invert(q)[:, :, None, :]
+        qinv = so3.quaternion_invert(Ts[..., :4])[:, :, None, :]
         lin_vel = so3.quaternion_apply(qinv, lin_vel)
         ang_spin = so3.quaternion_apply(qinv, ang_spin)
         ang_orbital = torch.linalg.cross(
@@ -155,7 +195,7 @@ class ScoreModelHead(_FieldHead):
         qw = torch.where(query_pcd.mask, query_pcd.w, torch.zeros_like(query_pcd.w))
         lin = torch.einsum("rq,rtqi->rti", qw, lin_vel)
         ang = torch.einsum("rq,rtqi->rti", qw, ang_orbital + ang_spin)
-        return ang, lin
+        return reduce_from_shards(ang, group), reduce_from_shards(lin, group)
 
 
 class EbmScoreModelHead(_FieldHead):
@@ -165,10 +205,12 @@ class EbmScoreModelHead(_FieldHead):
 
     def forward(self, Ts, key_pcd_multiscale, query_pcd, time) -> torch.Tensor:
         r, nT, nQ = Ts.shape[0], Ts.shape[1], query_pcd.n
+        group = self._group()
+        Ts = copy_to_shards(Ts, group)
         key_features, f_t_flat = self.field_at_poses(Ts, key_pcd_multiscale, query_pcd, time)
         diff2 = torch.square(key_features - f_t_flat).sum(dim=-1) * (1.0 / self.irreps_key.dim)
         qw = torch.where(query_pcd.mask, query_pcd.w, torch.zeros_like(query_pcd.w))
-        return torch.einsum("rq,rtq->rt", qw, diff2.reshape(r, nT, nQ))
+        return reduce_from_shards(torch.einsum("rq,rtq->rt", qw, self._all_rows(diff2.reshape(r, -1), nT, nQ)), group)
 
 
 def ebm_score(apply_energy: Callable[[torch.Tensor], torch.Tensor], Ts: torch.Tensor, ang_mult: float,

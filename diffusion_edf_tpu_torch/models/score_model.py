@@ -66,6 +66,7 @@ class _ScoreModel(nn.Module):
             time_enc_n=float(kw.pop("time_enc_n", 10000.0)),
             edge_time_encoding=bool(kw.pop("edge_time_encoding")),
             query_time_encoding=bool(kw.pop("query_time_encoding")),
+            query_shard_axes=kw.pop("query_shard_axes", None),
         )
         assert not kw, f"Unconsumed score_head_kwargs: {kw}"
         self.set_edge_impl(edge_impl)

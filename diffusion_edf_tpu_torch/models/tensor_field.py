@@ -7,6 +7,11 @@ radius), the length (+ per-scale context) embedding and a pre-linear; the
 scales are concatenated along the neighbour-slot axis and Equiformer blocks
 attend over the union.  The clouds come stacked over requests, so one call
 serves the query points of several requests (``agent.sample_batch``).
+
+With ``scene_axis_name`` set, each rank holds a block of every scale
+(``parallel/sharded.py::scene_sharded_score_fn``) and the blocks' attention
+combines the ranks (``nn/attention.py``); the query positions and the
+context enter the per-rank edges through ``copy_to_shards``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from ..data import FeaturedPoints, GraphEdges, concat_edges
 from ..geom.irreps import Irreps
 from ..nn.blocks import EquiformerBlock
 from ..nn.radial import Dense
+from ..parallel.mesh import copy_to_shards, current_mesh
 from .edge import InfiniteEdgeEncoder, RadiusEdgeEncoder
 
 __all__ = ["MultiscaleTensorField"]
@@ -45,9 +51,12 @@ class MultiscaleTensorField(nn.Module):
         cutoff_method: str = "edge_attn",
         alpha_drop: float = 0.1,
         proj_drop: float = 0.0,
+        scene_axis_name: Optional[str] = None,
     ):
         super().__init__()
         self.n_scales = len(r_cluster_multiscale)
+        self.k_multiscale = list(k_multiscale)
+        self.scene_axis_name = scene_axis_name
         self.edge_context_emb_dim = edge_context_emb_dim
         fc_neurons = list(fc_neurons)
         expect_fc0 = length_emb_dim + (edge_context_emb_dim or 0)
@@ -83,7 +92,7 @@ class MultiscaleTensorField(nn.Module):
             irreps_src=irreps_in, irreps_emb=irreps_in, irreps_edge_attr=Irreps(irreps_sh),
             num_heads=num_heads, fc_neurons=tuple(fc_neurons), irreps_mlp_mid=irreps_mlp_mid,
             use_src_point_attn=use_src_point_attn, use_edge_logits=use_edge_weights,
-            alpha_drop=alpha_drop, proj_drop=proj_drop,
+            alpha_drop=alpha_drop, proj_drop=proj_drop, scene_axis_name=scene_axis_name,
         )
         self.gnn_block_init = EquiformerBlock(
             irreps_dst=Irreps(irreps_query) if use_dst else irreps_in,
@@ -106,10 +115,16 @@ class MultiscaleTensorField(nn.Module):
         assert len(input_points_multiscale) == self.n_scales
         assert (context_emb is not None) == (self.edge_context_emb_dim is not None)
         r = query_points.x.shape[0]
+        edge_query = query_points
+        if self.scene_axis_name:
+            group = current_mesh().group(self.scene_axis_name)
+            edge_query = query_points.replace(x=copy_to_shards(query_points.x, group))
+            if context_emb is not None:
+                context_emb = [copy_to_shards(c, group) for c in context_emb]
         all_edges: Optional[GraphEdges] = None
         n_total = 0
         for n, pts in enumerate(input_points_multiscale):
-            edges = getattr(self, f"parser_{n}")(pts, query_points)
+            edges = getattr(self, f"parser_{n}")(pts, edge_query)
             scalars = edges.scalars
             if context_emb is not None:
                 ctx = context_emb[n]

@@ -35,6 +35,18 @@ dropout is active (``train()`` mode with ``alpha_drop > 0``), else
 In ``train()`` mode the attention weights are dropped with probability
 ``alpha_drop`` after the softmax, and with ``proj_drop > 0`` whole irreps of
 the output; the keep masks come from ``dropout_generator``.
+
+With ``scene_axis_name`` set, the source cloud is sharded over that axis of
+the active mesh (``parallel/mesh.py::use_mesh``): each rank attends its own
+block's masked neighbourhood and the softmax tail combines the ranks, the
+max of the logits (detached) by an all-reduce max, the denominator and the
+per-head weighted value sums by all-reduce sums, before the head select.
+``"kernel"`` serves this path (K1 gives each rank's logits and values; the
+tail is PyTorch's), ``"fused"`` raises (K3 holds the whole softmax).  A rank
+whose block leaves a query row no valid slot adds exactly 0 there (the
+softmax floor).  Where the radius binds, the result is the replicated
+path's; where a neighbour cap binds, see ``parallel/sharded.py::
+scene_sharded_score_fn``.
 """
 from __future__ import annotations
 
@@ -46,6 +58,7 @@ import torch
 from torch import nn
 
 from ..geom.irreps import Irreps, multiply_irreps, sort_irreps_even_first
+from ..parallel.mesh import all_reduce_max, current_mesh, reduce_from_shards
 from .edge_kernel import build_edge_plan, edge_kernel, pack_radial, prepare_weights, weights_bf16
 from .fused_attention import fused_attention
 from .layers import EquivariantDropout, GateFromIrreps, IrrepsLinear, irreps2gate, keep_mask, scalar_silu
@@ -97,10 +110,12 @@ class GraphAttention(nn.Module):
         edge_impl: Optional[str] = None,
         alpha_drop: float = 0.1,
         proj_drop: float = 0.0,
+        scene_axis_name: Optional[str] = None,
     ):
         super().__init__()
         assert edge_impl is None or edge_impl in EDGE_IMPLS, edge_impl
         self.edge_impl = edge_impl
+        self.scene_axis_name = scene_axis_name
         self.alpha_drop = float(alpha_drop)
         self.dropout_generator: Optional[torch.Generator] = None
         irreps_input = self.irreps_input = Irreps(irreps_input)
@@ -174,6 +189,10 @@ class GraphAttention(nn.Module):
         impl = self._route(message, edge_attr, edge_scalars, edge_pre_attn_logit, edge_post_attn)
         nd, nk = message.shape[:2]
         H = self.H
+        scene = current_mesh().group(self.scene_axis_name) if self.scene_axis_name else None
+        if impl == "fused" and self.scene_axis_name:
+            raise RuntimeError("GraphAttention: edge_impl='fused' holds the whole softmax in one kernel and "
+                               "cannot combine a scene-sharded source cloud; use 'kernel' or 'plain'")
         if impl == "fused":
             weights, rad = cached(self, "edge_weights", list(self.parameters()), self._kernel_weights)
             head_of_col = _head_of_col(self.irreps_head, H, self.irreps_attn.dim)
@@ -209,18 +228,18 @@ class GraphAttention(nn.Module):
             log_alpha = log_alpha + edge_pre_attn_logit[..., None, :]
         mask = edge_mask[..., None, :]
         log_alpha = torch.where(mask, log_alpha, torch.full_like(log_alpha, -1e30))
-        m = torch.clamp(log_alpha.amax(dim=-1, keepdim=True).detach(), min=-0.5e30)
+        m = all_reduce_max(torch.clamp(log_alpha.amax(dim=-1, keepdim=True).detach(), min=-0.5e30), scene)
         ea = torch.where(mask, torch.exp(log_alpha - m), torch.zeros_like(log_alpha))
         # floor 0.5, not a tiny eps: a row with a valid edge has denom >= 1,
         # so the floor only engages on all-masked rows (alpha = 0 there)
-        alpha = ea / torch.clamp(ea.sum(dim=-1, keepdim=True), min=0.5)
+        alpha = ea / torch.clamp(reduce_from_shards(ea.sum(dim=-1, keepdim=True), scene), min=0.5)
         if edge_post_attn is not None:
             alpha = alpha * edge_post_attn[..., None, :]
         if self._dropping():
             keep = keep_mask(alpha.shape, self.alpha_drop, self.dropout_generator, alpha.device)
             alpha = alpha * keep / (1.0 - self.alpha_drop)
 
-        attn_hf = torch.einsum("nhk,nkf->nhf", alpha, val)
+        attn_hf = reduce_from_shards(torch.einsum("nhk,nkf->nhf", alpha, val), scene)
         key = (self.irreps_head, H, self.irreps_attn.dim)
         Hsel = constant(("head_select",) + key, lambda: _head_select(*key), attn_hf)
         attn = torch.einsum("nhf,hf->nf", attn_hf, Hsel)

@@ -1,16 +1,20 @@
 """Equiformer blocks over padded neighbourhoods (counterpart of the JAX
 package's ``nn/blocks.py``).  Dropout (``alpha_drop`` on the attention
 weights, ``proj_drop`` on whole irreps of the attention and feed-forward
-outputs) acts in ``train()`` mode only."""
+outputs) acts in ``train()`` mode only.  With ``scene_axis_name`` the source
+cloud is sharded over that mesh axis (``nn/attention.py``): the destination
+features enter each rank's messages through ``copy_to_shards``, so their
+gradient sums every rank's share."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..data import FeaturedPoints, GraphEdges
 from ..geom.irreps import Irreps, sort_irreps_even_first
+from ..parallel.mesh import copy_to_shards, current_mesh
 from .attention import GraphAttention
 from .layers import EquivariantDropout, EquivariantLayerNorm, GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
 from .tp import im_perm
@@ -86,8 +90,10 @@ class EquiformerBlock(nn.Module):
         use_edge_logits: bool = True,
         alpha_drop: float = 0.1,
         proj_drop: float = 0.0,
+        scene_axis_name: Optional[str] = None,
     ):
         super().__init__()
+        self.scene_axis_name = scene_axis_name
         irreps_src, irreps_dst = Irreps(irreps_src), Irreps(irreps_dst)
         irreps_emb = Irreps(irreps_emb) if irreps_emb is not None else irreps_dst
         irreps_out = Irreps(irreps_output) if irreps_output is not None else irreps_dst
@@ -108,6 +114,7 @@ class EquiformerBlock(nn.Module):
             irreps_head=irreps_head,
             alpha_drop=alpha_drop,
             proj_drop=proj_drop,
+            scene_axis_name=scene_axis_name,
         )
         if skip_connection and use_dst_feature:
             self.skip_1 = ProjectIfMismatch(irreps_dst, irreps_emb, layernorm=False)
@@ -122,7 +129,10 @@ class EquiformerBlock(nn.Module):
         msg_src = self.linear_src(self.prenorm_src(src.f))
         message = torch.index_select(msg_src, 0, edges.idx.reshape(-1)).reshape(*edges.idx.shape, -1)
         if self.use_dst_feature:
-            message = message + self.linear_dst(self.prenorm_dst(dst.f))[:, None, :]
+            msg_dst = self.linear_dst(self.prenorm_dst(dst.f))
+            if self.scene_axis_name:
+                msg_dst = copy_to_shards(msg_dst, current_mesh().group(self.scene_axis_name))
+            message = message + msg_dst[:, None, :]
         post_attn = None
         if self.use_src_point_attn:
             assert src.w is not None

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 __all__ = [
+    "BesselBasis",
     "Dense",
     "LayerNorm",
     "soft_step",
@@ -182,6 +183,24 @@ class GaussianRadialBasisFiniteCutoff(nn.Module):
         if self.soft_cutoff:
             x = x * soft_square_cutoff(d, thr=self.cutoff_thr_ratio, infinite=self.infinite)
         return x * math.sqrt(self.num_basis)
+
+
+class BesselBasis(nn.Module):
+    """Spherical Bessel basis ``sin(n pi x / c) / (x / c)``, n = 1..dim
+    (``BesselBasisEncoder``, ``radial_func.py:72-126``; no shipped config
+    uses it)."""
+
+    def __init__(self, dim: int, max_val: float, min_val: float = 0.0, max_cutoff: bool = False, eps: float = 1e-3):
+        super().__init__()
+        assert min_val == 0.0
+        self.dim, self.max_val, self.min_val, self.max_cutoff, self.eps = dim, max_val, min_val, max_cutoff, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = self.max_val - self.min_val
+        roots = torch.arange(1, self.dim + 1, dtype=x.dtype, device=x.device) * math.pi
+        xd = torch.clamp((x[..., None] - self.min_val) / c, min=self.eps)
+        out = torch.sin(roots * xd) / xd
+        return out * (xd < 1.0) if self.max_cutoff else out
 
 
 class SinusoidalPositionEmbeddings(nn.Module):

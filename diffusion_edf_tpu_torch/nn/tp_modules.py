@@ -1,5 +1,6 @@
-"""Tensor-product modules: depthwise TP and SeparableFCTP (DTP + linear +
-gate); counterpart of the JAX package's ``nn/tp_modules.py``."""
+"""Tensor-product modules: depthwise TP, SeparableFCTP (DTP + linear +
+gate) and the fully connected TP with its gated form (no shipped config
+uses the last two); counterpart of the JAX package's ``nn/tp_modules.py``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,9 +10,9 @@ from torch import nn
 
 from ..geom.irreps import Irreps
 from .layers import GateFromIrreps, IrrepsLinear, irreps2gate, scalar_silu
-from .tp import apply_dtp, apply_dtp_cm, cm_eligible, cm_input_perm, dtp_instructions
+from .tp import apply_dtp, apply_dtp_cm, apply_fctp, cm_eligible, cm_input_perm, dtp_instructions, fctp_instructions
 
-__all__ = ["DepthwiseTP", "SeparableFCTP"]
+__all__ = ["DepthwiseTP", "SeparableFCTP", "FullyConnectedTP", "FullyConnectedTPSwishGate"]
 
 
 class DepthwiseTP(nn.Module):
@@ -95,3 +96,46 @@ class SeparableFCTP(nn.Module):
         assert not self.use_activation
         W, b = self.lin.materialize()
         return self.dtp.tp_weight, W, b
+
+
+class FullyConnectedTP(nn.Module):
+    """'uvw' TP with shared weights (``tp_weight``) and a bias on the scalar
+    outputs (``FCTP Rescale``)."""
+
+    def __init__(self, irreps_in1, irreps_in2, irreps_out, use_bias: bool = True):
+        super().__init__()
+        self.program = fctp_instructions(Irreps(irreps_in1), Irreps(irreps_in2), Irreps(irreps_out))
+        self.tp_weight = nn.Parameter(torch.empty(self.program.weight_numel))
+        n_scalar = sum(mul for mul, ir in self.program.irreps_out if ir.l == 0 and ir.p == 1)
+        self.bias = nn.Parameter(torch.empty(n_scalar)) if use_bias and n_scalar else None
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        out = apply_fctp(self.program, x1, x2, self.tp_weight)
+        if self.bias is None:
+            return out
+        pieces, i, b = [], 0, 0
+        for mul, ir in self.program.irreps_out:
+            blk = out[..., i : i + mul * ir.dim]
+            if ir.l == 0 and ir.p == 1:
+                blk = blk + self.bias[b : b + mul]
+                b += mul
+            pieces.append(blk)
+            i += mul * ir.dim
+        return torch.cat(pieces, dim=-1)
+
+
+class FullyConnectedTPSwishGate(nn.Module):
+    """A fully connected TP into the gate's layout, then the gated
+    nonlinearity to ``irreps_out`` (SiLU alone when it has no gated irreps).
+    The TP keeps the flax module's automatic name ``FullyConnectedTP_0``."""
+
+    def __init__(self, irreps_in1, irreps_in2, irreps_out):
+        super().__init__()
+        out_ir = Irreps(irreps_out)
+        s, g, t = irreps2gate(out_ir)
+        self.FullyConnectedTP_0 = FullyConnectedTP(irreps_in1, irreps_in2, (s + g + t).simplify() if g.dim else out_ir)
+        self.gate = GateFromIrreps(out_ir) if g.dim else None
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        h = self.FullyConnectedTP_0(x1, x2)
+        return scalar_silu(h) if self.gate is None else self.gate(h)

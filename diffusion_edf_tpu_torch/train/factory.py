@@ -4,7 +4,7 @@ configs may leave out (counterpart of the JAX package's
 ``train/factory.py``)."""
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 from ..models.score_model import MultiscaleScoreModel, PointAttentiveScoreModel
 
@@ -47,18 +47,27 @@ def build_score_model(
     model_kwargs: Dict,
     k_defaults: Optional[Dict] = None,
     edge_impl: Optional[str] = None,
+    scene_axis_name: Optional[str] = None,
+    query_shard_axes: Optional[Sequence[str]] = None,
 ):
     """Build a ``MultiscaleScoreModel`` or a ``PointAttentiveScoreModel``
     from (``model_name``, ``model_kwargs``) as loaded from
     ``score_model_configs.yaml``.  FPS is deterministic (seeded at the first
     valid point).  Parameters are uninitialised: load a checkpoint or call
-    :func:`..weights.init_params`."""
+    :func:`..weights.init_params`.  ``scene_axis_name`` and
+    ``query_shard_axes`` set those config keys (the key tensor field's and
+    the score head's) for the sharded paths of ``parallel/``; the
+    parameters stay the same."""
     k = dict(DEFAULT_K)
     if k_defaults:
         k.update(k_defaults)
     mk = dict(model_kwargs)
     sh = dict(mk["score_head_kwargs"])
     sh["key_tensor_field_kwargs"] = _fill_tensor_field(sh["key_tensor_field_kwargs"], k["k_field"])
+    if scene_axis_name:
+        sh["key_tensor_field_kwargs"]["scene_axis_name"] = scene_axis_name
+    if query_shard_axes:
+        sh["query_shard_axes"] = list(query_shard_axes)
     if model_name == "MultiscaleScoreModel":
         cls = MultiscaleScoreModel
         key_kwargs = dict(mk["key_kwargs"])

@@ -24,7 +24,10 @@ Checkpoints are one ``.npz``: ``params/...`` and ``ema_params/...`` in the
 flat flax keys of ``weights.py``, ``opt_state/{mu,nu,nu_max}/...`` and
 ``opt_state/count``, ``__rng__`` (the generator's state) and ``__meta__``
 (JSON: epoch, steps).  :meth:`DiffusionEdfTrainer.export` writes the
-parameters alone in the layout of the shipped ``checkpoints/**/*.npz``."""
+parameters alone in the layout of the shipped ``checkpoints/**/*.npz``.
+
+Given a mesh, :meth:`DiffusionEdfTrainer.step` is data parallel over one
+of its axes (``parallel/sharded.py::make_sharded_train_step``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,12 +38,14 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from ..data import FeaturedPoints, stack_points
 from ..diffusion.diffuse import biequiv_diffusion, random_time
 from ..geom import so3
 from ..models.score_model import train_loss
+from ..parallel.mesh import Mesh, gather_batch, shard_batch
 from ..weights import flat_arrays, init_params, load_params_npz, unflatten_arrays
 from .augment import AugmentConfig, _frame_about, augment_batch
 from .data import DemoSequence, compose_proc_fn, pad_pointcloud
@@ -258,44 +263,70 @@ class DiffusionEdfTrainer:
             inputs.Ts_rank, inputs.badness = sample_ranked_poses(T_target[0], self.rank_cfg, g)
         return inputs
 
-    def loss(self, inputs: StepInputs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, inputs: StepInputs, mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The loss of one step and its statistics: one forward extracts the
         scene and query features once, then the score on the diffused poses
         and, for a critic, the energies of the ranked poses (at time 1: the
-        critic's energy is time-independent)."""
+        critic's energy is time-independent).  With ``mesh``, this rank
+        scores its block of the poses over the ``"data"`` axis and the blocks
+        are gathered (``make_sharded_train_step``)."""
         m = self.model
         key_ms = [stack_points([p]) for p in m.get_key_pcd_multiscale(inputs.scene)]  # one request
         query = stack_points([m.get_query_pcd(inputs.grasp)])
-        ang, lin = m.score(inputs.Ts[None], key_ms, query, inputs.times[None])
-        ang, lin = ang[0], lin[0]
+
+        def block(x):  # this rank's block of the pose axis
+            return x if mesh is None else shard_batch(mesh, x)[0]
+
+        def gathered(x, n):  # every rank's block, the padding dropped
+            return x if mesh is None else gather_batch(mesh, x, n)
+
+        n = inputs.Ts.shape[0]
+        ang, lin = m.score(block(inputs.Ts)[None], key_ms, query, block(inputs.times)[None])
+        ang, lin = gathered(ang[0], n), gathered(lin[0], n)
         loss, stats = train_loss(ang, lin, inputs.tgt_ang, inputs.tgt_lin, inputs.times, self.ang_mult, self.lin_mult)
         if self.rank_cfg is not None:
-            E = m.energy(inputs.Ts_rank[None], key_ms, query, inputs.Ts_rank.new_ones(1, inputs.Ts_rank.shape[0]))[0]
+            Tr = block(inputs.Ts_rank)
+            E = gathered(m.energy(Tr[None], key_ms, query, Tr.new_ones(1, Tr.shape[0]))[0], inputs.Ts_rank.shape[0])
             rloss, racc = rank_loss(E, inputs.badness, self.rank_cfg)
             loss = loss + self.rank_cfg.weight * rloss
             stats.update({"loss/train": loss, "rank/loss": rloss, "rank/pair_acc": racc, "rank/e_target": E[0],
                           "rank/e_spread": E.max() - E.min()})
         return loss, stats
 
-    def loss_and_grads(self, inputs: StepInputs) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
-        loss, stats = self.loss(inputs)
-        grads = torch.autograd.grad(loss, self.params)
-        return loss, stats, list(grads)
+    def loss_and_grads(self, inputs: StepInputs,
+                       mesh: Optional[Mesh] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """The loss, its statistics and the gradient of every parameter; with
+        ``mesh``, the gradient summed over the ranks of the ``"data"`` axis."""
+        loss, stats = self.loss(inputs, mesh)
+        grads = list(torch.autograd.grad(loss, self.params))
+        group = mesh.group("data") if mesh is not None else None
+        if group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=group)
+            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        return loss, stats, grads
 
-    def step(self, batch: DemoBatch) -> Dict[str, float]:
-        """One training step on ``batch`` (dropout on); its statistics."""
+    def step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, float]:
+        """One training step on ``batch`` (dropout on); its statistics.  With
+        ``mesh``, data parallel over the ``"data"`` axis
+        (``make_sharded_train_step``)."""
         assert self.optimizer is not None, "call init() first"
         inputs = self.draw_step(batch)
         self.model.train()
-        _, stats, grads = self.loss_and_grads(inputs)
+        _, stats, grads = self.loss_and_grads(inputs, mesh)
         stats["grad_norm"] = global_norm(grads)
+        self.apply_grads(grads)
+        keys = list(stats)
+        return dict(zip(keys, torch.stack([stats[k].detach().float() for k in keys]).tolist()))
+
+    def apply_grads(self, grads: List[torch.Tensor]) -> None:
+        """The update of one step: the optimizer's step on ``grads``, then the
+        EMA of the parameters."""
         self.optimizer.step(grads)
         d = float(self.ema_decay) if self.ema_decay else 0.0
         with torch.no_grad():
             torch._foreach_mul_(self.ema, d)
             torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
-        keys = list(stats)
-        return dict(zip(keys, torch.stack([stats[k].detach().float() for k in keys]).tolist()))
 
     def evaluate(self, inputs: StepInputs) -> Dict[str, float]:
         """The loss statistics on ``inputs`` with dropout off, no gradient

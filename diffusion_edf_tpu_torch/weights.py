@@ -68,11 +68,12 @@ def unflatten_arrays(model: nn.Module, flat: Dict[str, np.ndarray]) -> List[np.n
 def flat_arrays(model: nn.Module, tensors: Optional[Sequence[torch.Tensor]] = None) -> Dict[str, np.ndarray]:
     """The inverse of :func:`unflatten_arrays`: the model's parameters (or
     ``tensors``, one for each parameter) as a flat flax-keyed dict, stacked
-    groups stacked again along their first axis."""
+    groups stacked again along their first axis; copies, never views of the
+    tensors."""
     out = {}
     for key, items in _groups(model, tensors).items():
         arrs = [t.detach().cpu().numpy() for _, t in sorted(items, key=lambda it: it[0])]
-        out[key] = np.stack(arrs) if items[0][0] else arrs[0]
+        out[key] = np.stack(arrs) if items[0][0] else arrs[0].copy()
     return out
 
 
@@ -100,7 +101,7 @@ def init_params(model: nn.Module, generator: Optional[torch.Generator] = None) -
     from .nn.attention import GraphAttention
     from .nn.layers import EquivariantLayerNorm, IrrepsLinear
     from .nn.radial import Dense, GaussianRadialBasis, GaussianRadialBasisFiniteCutoff, LayerNorm, RadialProfile
-    from .nn.tp_modules import DepthwiseTP
+    from .nn.tp_modules import DepthwiseTP, FullyConnectedTP
 
     g = generator
 
@@ -122,6 +123,10 @@ def init_params(model: nn.Module, generator: Optional[torch.Generator] = None) -
                     p.fill_(1.0) if n in ("scale", "weight") else p.zero_()
             elif isinstance(m, DepthwiseTP) and m.internal_weights:
                 uni(m.tp_weight, -1.0, 1.0)
+            elif isinstance(m, FullyConnectedTP):
+                uni(m.tp_weight, -1.0, 1.0)
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, RadialProfile) and m.offset is not None:
                 uni(m.offset, 0.0, 2.0 / math.sqrt(m.ch_list[-2]))
             elif isinstance(m, GraphAttention):
