@@ -144,12 +144,41 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rank 0's parameters and EMA after each step equal to this process's
    update of those gradients (within the gradient gate of each key's
    largest change), the parameters equal on both ranks after the steps;
-14. one JSON line listing each kernel, then the card line, then the result
+14. the model-building tools (``diffusion_edf_tpu_torch/tools/``, each
+   through the function a user calls), on the default ``edge_impl``, in
+   ``build/smoke_tools``: (a) ``gen_cascade_samples.main`` on the shipped
+   pick cascade with the ``reports/schedule_sweep_pick_r2.json`` winner,
+   one training demo (demo seed 0) and one held-out demo (500), 16 seeds
+   each: the dump's keys, dtypes and shapes those of the JAX tool, its
+   errors finite and equal to ``eval.pose_errors`` recomputed, K1 launched
+   once a step and once per extractor attention; (b) the ``pick_ebm`` critic
+   from ``pick_ebm_cascade.npz`` on those dumps: the held-out energies on
+   ``kernel`` and ``fused`` against ``plain`` within ``ENERGY_GATE`` of
+   max|E|, the executed sample the same wherever the two lowest plain
+   energies differ by more than that, launches counted; three fine-tune
+   steps (``make_train_step``, dropout on) finite with no launch, ms a step;
+   the tool's ``main`` for one epoch: the committed report's keys, K1
+   launched by its three evaluations alone, the float16 export with exactly
+   the shipped key set; (c) ``sweep_schedule.sweep`` with the ``reference``
+   and ``low_floor`` candidates on one demo of the default split, 4 seeds:
+   the committed report's keys, success in [0, 1], K1's launches per
+   candidate; (d) ``train_eval_loop.main`` on ``panda_bowl/pick_lowres``
+   warm-started from its checkpoint, one epoch on two synthetic bowl demos,
+   an evaluation of one demo x 4 seeds before and after: two curve lines
+   with the JAX curve's keys, ``best.json``, the float16 export reloaded,
+   K1 launched by the evaluations alone; (e) ``k_truncation_report.main`` at
+   full ``pick_lowres`` width, 5 demos x 8 poses: every call site within the
+   JAX package's 1 % budget, the committed report's call sites, radii and
+   caps, the same destinations a demo; (f) one score of the shipped
+   ``panda_bottle/pick_lowres`` and ``panda_bowl/place_lowres``, extraction
+   included, ``kernel`` against ``plain`` within ``HIGHRES_SCORE_GATE`` of
+   max|score|;
+15. one JSON line listing each kernel, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.  A kernel's own keys hold the pick
    tensor field and the launches of the pick path it was first measured on;
    ``by_shape`` holds K1's and K3's records at the pick, place and sapien key
    fields and the keypoint field, ``launches_by_path`` the counts of the
-   other paths (per rank on the sharded paths).
+   other paths (per rank on the sharded paths; phase 14's tools by name).
 
 There is no CPU fallback: without a CUDA device the script exits 1.
 """
@@ -977,11 +1006,16 @@ def train_phase(dev, scene, grasp) -> dict:
     return summary
 
 
-def n_attentions(bundles) -> int:
-    """The GraphAttentions that one extraction of each bundle's key and
-    query models runs (each once)."""
-    return sum(1 for b in bundles for part in (b.model.key_model, b.model.query_model)
+def model_attentions(model) -> int:
+    """The GraphAttentions that one extraction of ``model``'s key and query
+    models runs (each once)."""
+    return sum(1 for part in (model.key_model, model.query_model)
                for m in part.modules() if type(m).__name__ == "GraphAttention")
+
+
+def n_attentions(bundles) -> int:
+    """``model_attentions`` summed over the bundles' models."""
+    return sum(model_attentions(b.model) for b in bundles)
 
 
 EVAL_CASCADES = dict(pick=("schedule_sweep_pick_r2.json", "eval_pick_cascade.json"),
@@ -1496,6 +1530,370 @@ def multi_device_phase(dev, lowres_final: np.ndarray) -> dict:
                 and worst_update[0] <= grad_gate and same):
             raise SmokeFailure(f"13c: the data-parallel {name} step differs from one process's")
         del tr
+    return summary
+
+
+# phase 14: the model-building tools (diffusion_edf_tpu_torch/tools/)
+TOOLS_DIR = os.path.join(ROOT, "build", "smoke_tools")
+PICK_SWEEP = os.path.join(ROOT, "reports", "schedule_sweep_pick_r2.json")
+DUMP_DEMO_SEEDS, DUMP_SEEDS = dict(train=0, eval=500), 16  # 14a: one training and one held-out demo
+CRITIC_FT_STEPS = 3
+SWEEP_CANDIDATES, SWEEP_SEEDS = ("reference", "low_floor"), 4
+DUMP_DTYPES = dict(scene_x="float32", scene_f="float32", scene_mask="bool", grasp_x="float32", grasp_f="float32",
+                   grasp_mask="bool", samples="float32", trans_err="float32", rot_err_deg="float32",
+                   target="float32", meta="uint8")
+K_TRUNCATION_BUDGET = 0.01  # the JAX package's own budget (tests/test_neighbors.py:123-140)
+FAMILY_SCORES = (("panda_bottle", "pick_lowres"), ("panda_bowl", "place_lowres"))
+
+
+def dump_phase(dev, bundles, cfg) -> dict:
+    """14a: ``gen_cascade_samples`` on the shipped pick cascade with the r2
+    sweep's winner, one training and one held-out demo; returns the dump
+    paths and the numbers."""
+    from diffusion_edf_tpu_torch.eval import PREPROCESS as eval_pre
+    from diffusion_edf_tpu_torch.eval import pose_errors
+    from diffusion_edf_tpu_torch.tools import gen_cascade_samples
+    from diffusion_edf_tpu_torch.train.data import TargetPoseDemo, compose_proc_fn
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+
+    n_steps = sum(map(sum, cfg["N_steps_list"]))
+    expected = n_steps + n_attentions(bundles)
+    out = dict(paths={}, launches={}, seconds_per_demo={})
+    for name, demo_seed in DUMP_DEMO_SEEDS.items():
+        path = os.path.join(TOOLS_DIR, f"cascade_samples_pick_{name}.npz")
+        reset_counters()
+        t0 = time.perf_counter()
+        gen_cascade_samples.main([
+            "--task-type", "pick", "--configs-root-dir", os.path.join(CONFIGS, "pick_lowres"),
+            "--checkpoint-dir", CHECKPOINT, "--cascade-configs-root-dir", os.path.join(CONFIGS, "pick_highres"),
+            "--cascade-checkpoint-dir", os.path.join(CHECKPOINTS, "pick_highres.npz"), "--schedule-json", PICK_SWEEP,
+            "--n-demos", "1", "--n-seeds", str(DUMP_SEEDS), "--demo-seed", str(demo_seed), "--out", path])
+        out["seconds_per_demo"][name] = time.perf_counter() - t0
+        out["launches"][name] = launched = counters()
+        out["paths"][name] = path
+        with np.load(path) as z:
+            d = {k: z[k] for k in z.files}
+        shapes = dict(scene_x=(1, 2048, 3), scene_f=(1, 2048, 3), scene_mask=(1, 2048), grasp_x=(1, 512, 3),
+                      grasp_f=(1, 512, 3), grasp_mask=(1, 512), samples=(1, DUMP_SEEDS, 7),
+                      trans_err=(1, DUMP_SEEDS), rot_err_deg=(1, DUMP_SEEDS), target=(1, 7), names=(1,))
+        bad = [k for k in DUMP_DTYPES if str(d[k].dtype) != DUMP_DTYPES[k]] + [
+            k for k in shapes if d[k].shape != shapes[k]]
+        demo = make_synthetic_dataset(n_demos=1, seed=demo_seed, diverse=True)[0][0]
+        proc = compose_proc_fn(eval_pre)(TargetPoseDemo(scene_pcd=demo.scene_pcd, grasp_pcd=demo.grasp_pcd,
+                                                        target_poses=demo.target_poses))
+        errs = pose_errors(d["samples"][0], proc.target_poses)
+        same = all(np.array_equal(errs[k].astype(np.float32), d[k][0]) for k in ("trans_err", "rot_err_deg"))
+        ok = (d["trans_err"] <= 1.0) & (d["rot_err_deg"] <= 5.0)
+        log(f"14a: gen_cascade_samples, pick cascade ({n_steps} steps), {name} demo (demo seed {demo_seed}) x "
+            f"{DUMP_SEEDS} seeds: {out['seconds_per_demo'][name]:.1f} s a demo; median {np.median(d['trans_err']):.3f} "
+            f"cm {np.median(d['rot_err_deg']):.3f} deg, success {ok.mean():.3f}; keys {sorted(d)}; launches "
+            f"{launched} (expected edge_kernel {expected}: {n_steps} steps + {n_attentions(bundles)} extractor "
+            f"attentions); errors equal eval.pose_errors recomputed: {same}")
+        if set(d) != set(DUMP_DTYPES) | {"names"} or bad or not d["names"].dtype.kind == "U":
+            raise SmokeFailure(f"14a: the {name} dump is not in the JAX tool's format: {bad or sorted(d)}")
+        if not (same and np.isfinite(d["samples"]).all() and np.isfinite(d["trans_err"]).all()):
+            raise SmokeFailure(f"14a: the {name} dump's errors are not finite or not those of eval.pose_errors")
+        if (launched["edge_kernel"], launched["fused_attention"], launched["edge_kernel_bf16"]) != (expected, 0, 0):
+            raise SmokeFailure(f"14a: the {name} dump did not run through K1 as counted")
+    return out
+
+
+def critic_phase(dev, dumps) -> dict:
+    """14b: the ``pick_ebm`` critic from ``pick_ebm_cascade.npz`` on 14a's
+    dumps: held-out energies on ``kernel`` and ``fused`` against ``plain``,
+    fine-tune steps (no launch), and the tool's main with its report and
+    float16 export."""
+    import torch
+
+    from diffusion_edf_tpu_torch.tools import train_critic_cascade as tcc
+    from diffusion_edf_tpu_torch.train.ranking import RankConfig
+    from diffusion_edf_tpu_torch.weights import load_params_npz
+
+    cfg_dir, ckpt = os.path.join(CONFIGS, "pick_ebm"), os.path.join(CHECKPOINTS, "pick_ebm_cascade.npz")
+    model, train_cfg = tcc.build_critic(cfg_dir, dev, ckpt)
+    per_demo = model_attentions(model) + 1  # the critic's extraction and one energy field
+    ev, tr = tcc.load_dump(dumps["paths"]["eval"]), tcc.load_dump(dumps["paths"]["train"])
+    E, launched = {}, {}
+    for impl in ("plain", "kernel", "fused"):
+        model.set_edge_impl(impl)
+        reset_counters()
+        with torch.no_grad():
+            E[impl] = tcc.energies(model, torch.as_tensor(ev["samples"][0], device=dev),
+                                   *tcc.dump_clouds(ev, 0, dev)).cpu().numpy()
+        launched[impl] = counters()
+    model.set_edge_impl(None)
+    scale = float(np.abs(E["plain"]).max())
+    errs = {impl: float(np.abs(E[impl] - E["plain"]).max()) for impl in ("kernel", "fused")}
+    low = np.sort(E["plain"])[:2]
+    decisive = bool(low[1] - low[0] > ENERGY_GATE * scale)
+    same_exec = {impl: int(np.argmin(E[impl])) == int(np.argmin(E["plain"])) for impl in errs}
+    log(f"14b: pick_ebm_cascade energies of the held-out dump's {DUMP_SEEDS} samples, against plain: kernel "
+        f"{errs['kernel']:.3g}, fused {errs['fused']:.3g} (gate {ENERGY_GATE} x max|E| {scale:.3g}); executed sample "
+        f"the same {same_exec} (required: {decisive}, the two lowest plain energies "
+        f"{low[1] - low[0]:.3g} apart); launches {launched} ({per_demo} each on kernel and fused)")
+    if not all(np.isfinite(e).all() for e in E.values()) or max(errs.values()) > ENERGY_GATE * scale:
+        raise SmokeFailure("14b: the critic's kernel energies differ from the plain ones")
+    if decisive and not all(same_exec.values()):
+        raise SmokeFailure("14b: a kernel path executes another sample than plain")
+    k, f, p = launched["kernel"], launched["fused"], launched["plain"]
+    if (k["edge_kernel"], k["fused_attention"], f["fused_attention"], f["edge_kernel"], sum(p.values())) != (
+            per_demo, 0, per_demo, 0, 0):
+        raise SmokeFailure("14b: the critic's energies did not run through the expected kernels")
+
+    # fine-tune steps, dropout on: the plain path (the kernels have no backward), no launch
+    rank_cfg = RankConfig.from_dict(train_cfg.get("critic_rank_configs", {}) or {})
+    opt = tcc.make_optimizer(list(model.parameters()), 1e-4, CRITIC_FT_STEPS)
+    step = tcc.make_train_step(model, tr, RankConfig(n_negatives=16), rank_cfg, opt,
+                               torch.Generator(device=dev).manual_seed(0))
+    reset_counters()
+    ms, losses = [], []
+    for _ in range(CRITIC_FT_STEPS):
+        t0 = time.perf_counter()
+        stats = step(0)
+        losses.append(float(stats["loss"].detach()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    train_launches = counters()
+    model.eval()
+    log(f"14b: {CRITIC_FT_STEPS} fine-tune steps (16 fan + {DUMP_SEEDS} cascade samples, dropout on): losses "
+        f"{[round(v, 5) for v in losses]}, ms a step {[round(v, 1) for v in ms]}; launches {train_launches}")
+    if not np.isfinite(losses).all() or sum(train_launches.values()):
+        raise SmokeFailure("14b: a fine-tune step is not finite or launched a kernel")
+    del model, opt
+
+    # the tool's main: one epoch on the one-demo train dump; evaluations at epoch 0, 1 and on the best
+    report_path, export = os.path.join(TOOLS_DIR, "critic_cascade_pick.json"), os.path.join(TOOLS_DIR, "critic.npz")
+    reset_counters()
+    t0 = time.perf_counter()
+    report = tcc.main(["--configs-root-dir", cfg_dir, "--init-params-npz", ckpt,
+                       "--train-dump", dumps["paths"]["train"], "--eval-dump", dumps["paths"]["eval"],
+                       "--max-epochs", "1", "--eval-every", "1", "--export-best", export, "--out", report_path])
+    main_s = time.perf_counter() - t0
+    main_launches = counters()
+    with open(os.path.join(ROOT, "reports", "critic_cascade_pick.json")) as fh:
+        ref = json.load(fh)
+    with np.load(export) as z, np.load(ckpt) as zs:
+        keys_equal = set(z.files) == set(zs.files)
+        f16 = all(z[key].dtype == np.float16 for key in z.files if key != "__meta__")
+    load_params_npz(tcc.build_critic(cfg_dir, "cpu")[0], export)
+    log(f"14b: train_critic_cascade main, 1 epoch: {main_s:.1f} s; epoch 0 {report['epochs'][0]}; launches "
+        f"{main_launches} (expected edge_kernel {3 * per_demo}: 3 held-out evaluations); export keys equal the shipped "
+        f"{keys_equal}, float16 {f16}")
+    if (set(report) != set(ref) or [set(e) for e in report["epochs"]] != [set(ref["epochs"][0])] * 2
+            or set(report["noise_floor"]) != set(ref["noise_floor"])):
+        raise SmokeFailure("14b: the critic report's keys differ from the committed JAX report's")
+    if not (keys_equal and f16) or main_launches["edge_kernel"] != 3 * per_demo:
+        raise SmokeFailure("14b: the critic export or its evaluations are not as the JAX tool's")
+    return dict(rel_energy_err={k: v / scale for k, v in errs.items()}, energy_launches=launched,
+                step_ms=ms, losses=losses, main_s=main_s, main_launches=main_launches,
+                epoch0=report["epochs"][0])
+
+
+def sweep_phase(dev, bundles) -> dict:
+    """14c: ``sweep_schedule.sweep`` with two of its candidates on one demo
+    of the default split; K1's launches per candidate."""
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent
+    from diffusion_edf_tpu_torch.eval import PREPROCESS as eval_pre
+    from diffusion_edf_tpu_torch.tools import sweep_schedule
+    from diffusion_edf_tpu_torch.train.synthetic import make_split_dataset
+
+    agent = DiffusionEdfAgent(bundles, eval_pre, UNPROCESS)
+    cands = [c for c in sweep_schedule.candidate_schedules("pick") if c["name"] in SWEEP_CANDIDATES]
+    per_cand = []
+
+    def on_entry(entry):
+        per_cand.append((entry["name"], counters()))
+        reset_counters()
+
+    reset_counters()
+    t0 = time.perf_counter()
+    report = sweep_schedule.sweep(agent, cands, {"default": make_split_dataset("default", n_demos=1, seed=1000)},
+                                  "pick", 1, SWEEP_SEEDS, 0, out=os.path.join(TOOLS_DIR, "sweep.json"),
+                                  on_entry=on_entry)
+    with open(os.path.join(ROOT, "reports", "schedule_sweep_pick.json")) as fh:
+        ref = json.load(fh)
+    ref_entry = ref["candidates"][0]
+    out = dict(seconds=time.perf_counter() - t0, launches={}, seconds_per_candidate={}, winner=report["winner"])
+    for c, (name, launched) in zip(report["candidates"], per_cand):
+        expected = c["total_steps"] + n_attentions(bundles)
+        out["launches"][name] = launched
+        out["seconds_per_candidate"][name] = c["wall_s"]
+        log(f"14c: sweep candidate {name} ({c['total_steps']} steps), 1 demo x {SWEEP_SEEDS} seeds: {c['wall_s']} s, "
+            f"success {c['default']['success']}, medians {c['default']['trans_cm_median']:.3f} cm "
+            f"{c['default']['rot_deg_median']:.3f} deg; launches {launched} (expected edge_kernel {expected})")
+        if set(c) != set(ref_entry) - {"unseen_poses"} or set(c["default"]) != set(ref_entry["default"]):
+            raise SmokeFailure(f"14c: candidate {name}'s entry keys differ from the committed JAX report's")
+        if not (0.0 <= c["default"]["success"] <= 1.0 and 0.0 <= c["default"]["best_success"] <= 1.0):
+            raise SmokeFailure(f"14c: candidate {name}'s success is outside [0, 1]")
+        if (launched["edge_kernel"], launched["fused_attention"], launched["edge_kernel_bf16"]) != (expected, 0, 0):
+            raise SmokeFailure(f"14c: candidate {name} did not run through K1 as counted")
+    if set(report) != set(ref) or [c["name"] for c in report["candidates"]] != list(SWEEP_CANDIDATES):
+        raise SmokeFailure("14c: the sweep report's keys differ from the committed JAX report's")
+    log(f"14c: winner {report['winner']}; {out['seconds']:.1f} s")
+    return out
+
+
+def loop_phase(dev) -> dict:
+    """14d: ``train_eval_loop`` on ``panda_bowl/pick_lowres`` warm-started
+    from its checkpoint: one epoch on two synthetic bowl demos, an
+    evaluation before and after it."""
+    from diffusion_edf_tpu_torch.tools import train_eval_loop
+    from diffusion_edf_tpu_torch.train.factory import build_score_model
+    from diffusion_edf_tpu_torch.train.trainer import load_configs
+    from diffusion_edf_tpu_torch.weights import load_params_npz
+
+    cfg_dir = os.path.join(ROOT, "diffusion_edf_tpu_torch", "configs", "panda_bowl", "pick_lowres")
+    log_dir, export = os.path.join(TOOLS_DIR, "loop"), os.path.join(TOOLS_DIR, "bowl_pick_lowres.npz")
+    model_cfg = load_configs(cfg_dir)[2]
+    model = build_score_model(model_cfg["model_name"], model_cfg["model_kwargs"])
+    expected = 2 * (900 + model_attentions(model))  # two evaluations of the 900-step reference recipe
+    reset_counters()
+    t0 = time.perf_counter()
+    best = train_eval_loop.main([
+        "--configs-root-dir", cfg_dir, "--task-type", "pick", "--task-family", "bowl", "--synthetic-demos", "2",
+        "--max-epochs", "1", "--eval-every", "1", "--eval-demos", "1", "--n-seeds", "4", "--splits", "default",
+        "--init-params-npz", os.path.join(ROOT, "checkpoints", "panda_bowl", "pick_lowres.npz"),
+        "--log-name", log_dir, "--export-best", export])
+    seconds = time.perf_counter() - t0
+    launched = counters()
+    with open(os.path.join(log_dir, "learning_curve.jsonl")) as fh:
+        curve = [json.loads(line) for line in fh]
+    with open(os.path.join(ROOT, "reports", "learning_curve_pick_lowres.jsonl")) as fh:
+        ref = json.loads(fh.readline())
+    with np.load(export) as z:
+        f16 = all(z[k].dtype == np.float16 for k in z.files if k != "__meta__")
+    load_params_npz(model, export)
+    log(f"14d: train_eval_loop, panda_bowl/pick_lowres from its checkpoint, 1 epoch on 2 demos, 2 evaluations of "
+        f"1 demo x 4 seeds: {seconds:.1f} s; curve {curve}; best epoch {best['epoch']}; launches {launched} "
+        f"(expected edge_kernel {expected}: 2 x (900 steps + extractor attentions)); export float16 {f16}")
+    if [set(r) for r in curve] != [set(ref) - {"unseen_poses"}] * 2 or any(
+            set(r["default"]) != set(ref["default"]) for r in curve):
+        raise SmokeFailure("14d: the learning curve's lines are not the JAX tool's")
+    if not (os.path.exists(os.path.join(log_dir, "best.json")) and f16 and best["epoch"] == 1):
+        raise SmokeFailure("14d: best.json or the float16 export is missing")
+    if launched["edge_kernel"] != expected:
+        raise SmokeFailure("14d: the loop's evaluations did not run through K1 as counted (or training launched it)")
+    return dict(seconds=seconds, curve=curve, launches=launched)
+
+
+def k_truncation_phase(dev, bundles) -> dict:
+    """14e: ``k_truncation_report`` at full ``pick_lowres`` width, 5 demos x
+    8 poses, held to the budget and to the committed report's call sites."""
+    from diffusion_edf_tpu_torch.tools import k_truncation_report
+
+    n_demos = 5
+    reset_counters()
+    t0 = time.perf_counter()
+    rows = k_truncation_report.main(["--configs-root-dir", os.path.join(CONFIGS, "pick_lowres"), "--n-demos",
+                                     str(n_demos), "--n-poses", "8", "--json-out",
+                                     os.path.join(TOOLS_DIR, "k_truncation.json")])
+    seconds = time.perf_counter() - t0
+    launched = counters()
+    with open(os.path.join(ROOT, "reports", "k_truncation.json")) as fh:
+        ref = {r["tag"]: r for r in json.load(fh)}
+    by_tag = {r["tag"]: r for r in rows}
+    expected = n_demos * (n_attentions(bundles[:1]) + 1)
+    # the committed rows count destinations of fewer demos: the same number a demo, if the call sites are the same
+    ratios = {tag: ref[tag]["n_eval"] * n_demos / by_tag[tag]["n_eval"] for tag in ref if tag in by_tag}
+    for tag, r in by_tag.items():
+        rr = ref.get(tag, {})
+        log(f"14e: {tag:22s} r {r['r']:.4f} k {r['k']:3d} max degree {r['max_degree']:4d} (report "
+            f"{rr.get('max_degree')}) truncated {r['frac_truncated']:.5f} (report {rr.get('frac_truncated')}) n_eval "
+            f"{r['n_eval']} (report {rr.get('n_eval')})")
+    log(f"14e: {seconds:.1f} s; launches {launched} (expected edge_kernel {expected}); demos behind the committed "
+        f"report's rows, tag by tag: {sorted(set(ratios.values()))}")
+    worst = max(r["frac_truncated"] for r in rows)
+    if worst > K_TRUNCATION_BUDGET:
+        raise SmokeFailure(f"14e: a call site truncates {worst:.4f} of its neighbourhoods "
+                           f"(budget {K_TRUNCATION_BUDGET})")
+    if set(by_tag) != set(ref) or any(by_tag[t]["k"] != ref[t]["k"] or abs(by_tag[t]["r"] - ref[t]["r"]) > 1e-9
+                                      for t in ref):
+        raise SmokeFailure("14e: the call sites, radii or caps differ from the committed report's")
+    if len(set(ratios.values())) != 1 or launched["edge_kernel"] != expected:
+        raise SmokeFailure("14e: the destinations a demo or the K1 launches are not as expected")
+    return dict(seconds=seconds, rows=rows, launches=launched, report_demos=ratios[next(iter(ratios))])
+
+
+def family_score_phase(dev) -> dict:
+    """14f: one score of ``panda_bottle/pick_lowres`` and of
+    ``panda_bowl/place_lowres`` from their checkpoints, extraction
+    included, ``kernel`` against ``plain``."""
+    import torch
+
+    from diffusion_edf_tpu_torch.agent import load_model_bundle
+    from diffusion_edf_tpu_torch.eval import PREPROCESS as eval_pre
+    from diffusion_edf_tpu_torch.train.data import compose_proc_fn, pad_pointcloud
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+
+    out = {}
+    for family, name in FAMILY_SCORES:
+        b = load_model_bundle(os.path.join(ROOT, "diffusion_edf_tpu_torch", "configs", family, name),
+                              os.path.join(ROOT, "checkpoints", family, f"{name}.npz"), device=dev)
+        seq = make_synthetic_dataset(n_demos=1, seed=0, family=family.split("_")[1])[0]
+        demo = compose_proc_fn(eval_pre)(seq[0 if name.startswith("pick") else 1])
+        rng = np.random.default_rng(0)
+        T0 = np.asarray(demo.target_poses[0], np.float64)
+        q = T0[:4] + rng.normal(0, 0.2, (N_SEEDS, 4))
+        T = np.concatenate([q / np.linalg.norm(q, axis=-1, keepdims=True), T0[4:] + rng.normal(0, 2.0, (N_SEEDS, 3))],
+                           -1)
+        T = torch.as_tensor(T.astype(np.float32), device=dev)
+        m = b.model
+
+        def whole_score(impl):
+            m.set_edge_impl(impl)
+            try:
+                with torch.no_grad():
+                    res = m.score(*one_request(
+                        T, m.get_key_pcd_multiscale(pad_pointcloud(demo.scene_pcd, b.n_scene_pad, dev)),
+                        m.get_query_pcd(pad_pointcloud(demo.grasp_pcd, b.n_grasp_pad, dev)),
+                        torch.full((N_SEEDS,), 0.1, device=dev)))
+            finally:
+                m.set_edge_impl(None)
+            return torch.cat(list(res), dim=-1)
+
+        reset_counters()
+        sk = whole_score("kernel")
+        launched = counters()
+        sp = whole_score("plain")
+        err = float((sk - sp).abs().max() / sp.abs().max())
+        n_a = n_attentions([b])
+        out[f"{family}/{name}"] = dict(rel_err=err, launches=launched)
+        log(f"14f: {family}/{name} (shipped checkpoint): one score evaluation, extraction included, kernel against "
+            f"plain {err:.3g} of max|score| (gate {HIGHRES_SCORE_GATE}); launches {launched} ({n_a} extractor "
+            f"attentions + 1)")
+        if not (err <= HIGHRES_SCORE_GATE and bool(torch.isfinite(sk).all())) or launched["edge_kernel"] != n_a + 1:
+            raise SmokeFailure(f"14f: {family}/{name}'s kernel score differs from the plain one")
+        del b, m
+    return out
+
+
+def tools_phase(dev) -> dict:
+    """Phase 14, the model-building tools (see the module docstring);
+    returns its numbers."""
+    import torch
+
+    from diffusion_edf_tpu_torch.agent import load_model_bundle
+    from diffusion_edf_tpu_torch.eval import to_diffusion_configs
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+    with open(PICK_SWEEP) as fh:
+        sweep = json.load(fh)
+    win = next(c for c in sweep["candidates"] if c["name"] == sweep["winner"])
+    cfg = to_diffusion_configs({**win["schedule"], "name": win["name"]}, n_stages=2)
+    bundles = [load_model_bundle(os.path.join(CONFIGS, n), os.path.join(CHECKPOINTS, n + ".npz"), device=dev)
+               for n in ("pick_lowres", "pick_highres")]
+    summary = {}
+    for key, fn in (("cascade_dump", lambda: dump_phase(dev, bundles, cfg)),
+                    ("critic", lambda: critic_phase(dev, summary["cascade_dump"])),
+                    ("sweep", lambda: sweep_phase(dev, bundles)),
+                    ("loop", lambda: loop_phase(dev)),
+                    ("k_truncation", lambda: k_truncation_phase(dev, bundles)),
+                    ("family_scores", lambda: family_score_phase(dev))):
+        t0 = time.perf_counter()
+        summary[key] = fn()
+        torch.cuda.synchronize()
+        summary[key + "_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
     return summary
 
 
@@ -2116,6 +2514,13 @@ def run() -> int:
     t = time.perf_counter()
     multi = multi_device_phase(dev, final)
     log(f"phase 13: {time.perf_counter() - t:.1f} s; multi-device summary {json.dumps(multi)}")
+
+    # ---- phase 14: the model-building tools ----
+    t = time.perf_counter()
+    tools = tools_phase(dev)
+    log(f"phase 14: {time.perf_counter() - t:.1f} s ("
+        f"{', '.join(f'{k[:-2]} {v:.1f} s' for k, v in tools.items() if k.endswith('_s'))}); tools summary "
+        f"{json.dumps({k: v for k, v in tools.items() if k != 'k_truncation'})}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     src = "diffusion_edf_tpu_torch/csrc/"
@@ -2133,7 +2538,16 @@ def run() -> int:
                                    sapien_lowres_stage=sapien["stage"]["launches"]["kernel"]["edge_kernel"],
                                    seed_sharded_stage_by_rank=multi["seed_sharded_stage"]["launches"],
                                    query_sharded_score_by_rank=multi["sharded_score"]["query_kernel"]["launches"],
-                                   scene_sharded_score_by_rank=multi["sharded_score"]["scene_kernel"]["launches"]),
+                                   scene_sharded_score_by_rank=multi["sharded_score"]["scene_kernel"]["launches"],
+                                   cascade_dump=sum(v["edge_kernel"]
+                                                    for v in tools["cascade_dump"]["launches"].values()),
+                                   critic_cascade_eval=(tools["critic"]["energy_launches"]["kernel"]["edge_kernel"]
+                                                        + tools["critic"]["main_launches"]["edge_kernel"]),
+                                   schedule_sweep={k: v["edge_kernel"] for k, v in tools["sweep"]["launches"].items()},
+                                   train_eval_loop=tools["loop"]["launches"]["edge_kernel"],
+                                   k_truncation=tools["k_truncation"]["launches"]["edge_kernel"],
+                                   family_scores={k: v["launches"]["edge_kernel"]
+                                                  for k, v in tools["family_scores"].items()}),
              by_shape={n: k1[n] for n in shapes}, **k1["tensor_field"]),
         dict(name="edge_kernel_bf16", route="cuda", source=src + "edge_kernel.cu",
              replaces="diffusion_edf_tpu/nn/edge_kernel.py:568", launches=count5["edge_kernel_bf16"],
@@ -2143,7 +2557,8 @@ def run() -> int:
              max_abs_err=k3_err, launches_by_path=dict(
                  pick_request=count4["fused_attention"], place_request=count8f["fused_attention"],
                  sapien_lowres_stage=sapien["stage"]["launches"]["fused"]["fused_attention"],
-                 query_sharded_score_by_rank=multi["sharded_score"]["query_fused"]["launches"]),
+                 query_sharded_score_by_rank=multi["sharded_score"]["query_fused"]["launches"],
+                 critic_cascade_eval=tools["critic"]["energy_launches"]["fused"]["fused_attention"]),
              by_shape={n: k3[n] for n in shapes}, **k3["tensor_field"]),
     ]
     print(json.dumps({"kernels": kernels}))

@@ -16,7 +16,7 @@ from .cg import w3j_matrix
 from .irreps import Irreps
 from .so3 import quaternion_to_matrix
 
-__all__ = ["wigner_D_blocks", "rotate_irreps"]
+__all__ = ["wigner_D_blocks", "wigner_D_from_quaternion", "rotate_irreps"]
 
 
 def wigner_D_blocks(q: torch.Tensor, lmax: int) -> Dict[int, torch.Tensor]:
@@ -36,6 +36,11 @@ def wigner_D_blocks(q: torch.Tensor, lmax: int) -> Dict[int, torch.Tensor]:
         L = torch.einsum("...ab,...ibn->...ain", D1, K)
         out[l] = torch.einsum("aim,...ain->...mn", Mr, L) * (2 * l + 1)
     return out
+
+
+def wigner_D_from_quaternion(l: int, q: torch.Tensor) -> torch.Tensor:
+    """``D^l(q)`` alone, (..., 2l+1, 2l+1)."""
+    return wigner_D_blocks(q, l)[l]
 
 
 def rotate_irreps(irreps: Irreps, f: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

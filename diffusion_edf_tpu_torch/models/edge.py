@@ -99,12 +99,13 @@ def _nonscalar_ranges(r_mincut: Optional[float]):
 
 class RadiusEdgeEncoder(nn.Module):
     """Fixed-radius bipartite edges (nearest ``min(k, n_src)`` within
-    ``r_cutoff``) with a Gaussian length encoding."""
+    ``r_cutoff``) with a Gaussian length encoding.  ``tag`` names its
+    searches on the degree tape (``ops/neighbors.py``)."""
 
     def __init__(self, r_cutoff: float, k: int, irreps_sh, length_enc_dim: Optional[int],
-                 r_mincut_nonscalar_sh: Optional[float] = None, sh_cutoff: bool = False):
+                 r_mincut_nonscalar_sh: Optional[float] = None, sh_cutoff: bool = False, tag: str = ""):
         super().__init__()
-        self.r_cutoff, self.k = float(r_cutoff), k
+        self.r_cutoff, self.k, self.tag = float(r_cutoff), k, tag
         if length_enc_dim is not None:
             self.length_enc = GaussianRadialBasis(dim=length_enc_dim, max_val=self.r_cutoff)
         self.core = _EncoderCore(
@@ -113,7 +114,8 @@ class RadiusEdgeEncoder(nn.Module):
         )
 
     def forward(self, src: FeaturedPoints, dst: FeaturedPoints) -> GraphEdges:
-        idx, mask = radius_neighbors(src.x, dst.x, self.r_cutoff, min(self.k, src.n), src_mask=src.mask, dst_mask=dst.mask)
+        idx, mask = radius_neighbors(src.x, dst.x, self.r_cutoff, min(self.k, src.n), src_mask=src.mask,
+                                     dst_mask=dst.mask, tag=self.tag)
         return self.core(*_flat(src, dst, idx, mask), getattr(self, "length_enc", None))
 
 

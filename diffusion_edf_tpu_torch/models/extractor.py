@@ -48,11 +48,11 @@ def _per_scale(v, n_scales: int):
 
 
 def _edges(src: FeaturedPoints, dst: FeaturedPoints, r: float, k: int, irreps_sh: Irreps,
-           exclude_src_idx=None, exclude_src_owner=None, exclude_diagonal: bool = False) -> GraphEdges:
+           exclude_src_idx=None, exclude_src_owner=None, exclude_diagonal: bool = False, tag: str = "") -> GraphEdges:
     idx, mask = radius_neighbors(
         src.x, dst.x, r, k, src_mask=src.mask, dst_mask=dst.mask,
         exclude_src_idx=exclude_src_idx, exclude_src_owner=exclude_src_owner,
-        exclude_diagonal=exclude_diagonal,
+        exclude_diagonal=exclude_diagonal, tag=tag,
     )
     vec = src.x[idx] - dst.x[:, None, :]
     length = torch.sqrt(torch.clamp(torch.sum(torch.square(vec), dim=-1), min=1e-4))
@@ -110,12 +110,12 @@ class _DownPath(nn.Module):
             dst = FeaturedPoints(x=src.x[fps_idx], f=getattr(self, f"pool_proj_{n}")(src.f[fps_idx]),
                                  mask=fps_valid)
             pool_edges = _edges(src, dst, self.radii[n], min(self.k_pool[n], src.n), self.sh[n],
-                                exclude_src_idx=fps_idx)
+                                exclude_src_idx=fps_idx, tag=f"extractor/pool_{n}")
             pool_sources.append((src, fps_idx))
             points = getattr(self, f"pool_layer_{n}")(src, dst, pool_edges)
             stack.append(points)
             self_edges = _edges(points, points, self.radii[n], min(self.k_self[n], points.n), self.sh[n],
-                                exclude_diagonal=True)
+                                exclude_diagonal=True, tag=f"extractor/self_{n}")
             for i in range(self.n_layers[n] - 1):
                 points = getattr(self, f"self_layer_{n}_{i}")(points, points, self_edges)
                 stack.append(points)
@@ -234,7 +234,7 @@ class UnetFeatureExtractor(nn.Module):
                 # reversed pool edges coarse -> fine; the SH of the negated
                 # vector is the parity-inverted SH of the down edges
                 up_edges = _edges(points, fine, down.radii[n], min(self.k_up[n], points.n), down.sh[n],
-                                  exclude_src_owner=fps_idx)
+                                  exclude_src_owner=fps_idx, tag=f"extractor/up_{n}")
                 dst = FeaturedPoints(x=fine.x, f=saved.f, mask=fine.mask, w=fine.w)
                 points = getattr(self, f"unpool_layer_{n}")(points, dst, up_edges)
         upstream = upstream[::-1]

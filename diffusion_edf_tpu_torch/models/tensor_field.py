@@ -81,7 +81,7 @@ class MultiscaleTensorField(nn.Module):
                                           sh_cutoff, fill_edge_weights)
             else:
                 enc = RadiusEdgeEncoder(float(r), k_multiscale[n], irreps_sh,
-                                        length_emb_dim, r_mincut, sh_cutoff)
+                                        length_emb_dim, r_mincut, sh_cutoff, tag=f"radius_edge/parser_{n}")
                 if use_edge_weights:
                     fill_edge_weights = True
             self.add_module(f"parser_{n}", enc)

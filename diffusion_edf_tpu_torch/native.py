@@ -1,6 +1,6 @@
-"""ctypes binding for the native (C++) host-side voxel downsample (the
-JAX package's ``native.py``, with its one routine the port calls; host
-code, no framework).
+"""ctypes bindings for the native (C++) host-side point-cloud routines
+(the JAX package's ``native.py``: the voxel downsample and the radius
+count; host code, no framework).
 
 The library is compiled from ``native/pointcloud.cpp`` by ``g++`` at first
 use into ``build/`` at the repository root, as ``nn/cuda_build.py`` builds
@@ -8,8 +8,8 @@ the CUDA kernels: into a temporary file, then renamed (``os.replace``) to
 a name keyed on the hash of the source, the flags and the host's CPU (the
 flags hold ``-march=native``).  Processes that build at the same time each
 rename a whole library; none loads a file another is still writing.
-``voxel_downsample`` returns None when no ``g++`` is present, and the
-caller then runs the numpy path.
+Each routine returns None when no ``g++`` is present, and the caller then
+runs the numpy path.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["voxel_downsample", "build_library"]
+__all__ = ["voxel_downsample", "radius_count", "build_library"]
 
 _ROOT = Path(__file__).resolve().parents[1]
 _SOURCE = _ROOT / "native" / "pointcloud.cpp"
@@ -80,6 +80,11 @@ def _load():
         ctypes.c_int64, ctypes.c_float, ctypes.c_int,
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
     ]
+    lib.radius_count.restype = None
+    lib.radius_count.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_float, ctypes.POINTER(ctypes.c_int32),
+    ]
     _LIB = lib
     return _LIB
 
@@ -109,3 +114,16 @@ def voxel_downsample(
     if m < 0:
         return None
     return out_p[:m].copy(), out_c[:m].copy()
+
+
+def radius_count(src: np.ndarray, dst: np.ndarray, r: float) -> Optional[np.ndarray]:
+    """For each destination point (nd, 3), the number of source points (ns,
+    3) within ``r`` (int32, grid-bucketed); None if there is no compiler."""
+    lib = _load()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(src, dtype=np.float32)
+    d = np.ascontiguousarray(dst, dtype=np.float32)
+    out = np.empty((len(d),), dtype=np.int32)
+    lib.radius_count(_fptr(s), len(s), _fptr(d), len(d), float(r), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out

@@ -4,14 +4,68 @@ bipartite connectivity (counterpart of the JAX package's
 array plus a validity mask.  The radius search and the dense connectivity
 also take clouds with leading batch axes (one cloud per request): each
 destination then finds its neighbours in its own request's sources, with
-indices local to that request."""
+indices local to that request.
+
+Inside :func:`record_degree_tape`, every radius search also records each
+destination's in-radius count before the top-k cap (``DegreeRecord``), so
+that ``tools/k_truncation_report.py`` can measure how often a cap clips a
+neighbourhood; with no tape open nothing is recorded or computed."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["pairwise_sqdist", "radius_neighbors", "dense_neighbors", "farthest_point_sampling", "count_within_radius"]
+__all__ = ["pairwise_sqdist", "radius_neighbors", "radius_graph", "dense_neighbors", "farthest_point_sampling",
+           "count_within_radius", "DegreeRecord", "record_degree_tape", "summarize_degree_tape"]
+
+
+class DegreeRecord(NamedTuple):
+    """One radius search's truncation diagnostics: its call site's ``tag``,
+    radius, cap, each destination's in-radius count before the cap (...,
+    Nd) and the destination mask (or None)."""
+
+    tag: str
+    r: float
+    k: int
+    degree: torch.Tensor
+    dst_mask: Optional[torch.Tensor]
+
+
+_DEGREE_TAPE: Optional[List[DegreeRecord]] = None
+
+
+@contextlib.contextmanager
+def record_degree_tape() -> Iterator[List[DegreeRecord]]:
+    """Within the block, every :func:`radius_neighbors` call appends its
+    :class:`DegreeRecord` to the yielded list, in call order."""
+    global _DEGREE_TAPE
+    prev, tape = _DEGREE_TAPE, []
+    _DEGREE_TAPE = tape
+    try:
+        yield tape
+    finally:
+        _DEGREE_TAPE = prev
+
+
+def summarize_degree_tape(tape: Sequence[DegreeRecord]) -> List[dict]:
+    """One dict a record, over its valid destinations: ``tag``, ``r``,
+    ``k``, ``n_dst``, ``max_degree``, ``mean_degree`` and
+    ``frac_truncated`` (the share whose count exceeds the cap)."""
+    out = []
+    for rec in tape:
+        d = rec.degree.reshape(-1)
+        if rec.dst_mask is not None:
+            d = d[rec.dst_mask.reshape(-1)]
+        d = d.cpu().numpy()
+        out.append(dict(
+            tag=rec.tag, r=float(rec.r), k=int(rec.k), n_dst=int(d.size),
+            max_degree=int(d.max()) if d.size else 0,
+            mean_degree=float(d.mean()) if d.size else 0.0,
+            frac_truncated=float((d > rec.k).sum() / max(int(d.size), 1)),
+        ))
+    return out
 
 
 def pairwise_sqdist(dst_x: torch.Tensor, src_x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +88,7 @@ def radius_neighbors(
     exclude_diagonal: bool = False,
     exclude_src_idx: Optional[torch.Tensor] = None,
     exclude_src_owner: Optional[torch.Tensor] = None,
+    tag: str = "",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each destination, the k nearest valid sources within ``r`` ->
     (idx (..., Nd, k) long, valid (..., Nd, k) bool); invalid slots point at
@@ -56,6 +111,9 @@ def radius_neighbors(
     if exclude_diagonal:
         assert nd == ns, "exclude_diagonal requires a square graph"
         bad |= torch.eye(ns, dtype=torch.bool, device=d2.device)
+    if _DEGREE_TAPE is not None:
+        _DEGREE_TAPE.append(DegreeRecord(tag=tag, r=float(r), k=int(k),
+                                         degree=torch.sum(~bad, dim=-1, dtype=torch.int32), dst_mask=dst_mask))
     score = torch.where(bad, torch.full_like(d2, float("inf")), d2)
     neg_top, idx = torch.topk(-score, k, dim=-1)
     valid = neg_top > -float("inf")
@@ -63,6 +121,12 @@ def radius_neighbors(
         valid &= dst_mask[..., None]
     idx = torch.where(valid, idx, torch.zeros_like(idx))
     return idx, valid
+
+
+def radius_graph(x: torch.Tensor, r: float, k: int,
+                 mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The radius graph of one cloud on itself, without self-loops."""
+    return radius_neighbors(x, x, r, k, src_mask=mask, dst_mask=mask, exclude_diagonal=True)
 
 
 def dense_neighbors(
