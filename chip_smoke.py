@@ -76,7 +76,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    by 1e-6, and kernel against fused) that shows which side departs, and
    the place score step's profile;
 9. serving: ``AgentService`` with the pick and place cascades and their
-   critics, warmed up, behind ``run_server`` on a free local port: every
+   critics, warmed up with the served schedules (``warmup_service``),
+   behind ``run_server`` on a free local port: every
    endpoint for pick and place, four concurrent place ``/denoise`` requests
    through one batched dispatch with the edge-kernel launches of one
    request's Langevin steps, ``sample_batch`` of two requests against two
@@ -173,12 +174,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``panda_bottle/pick_lowres`` and ``panda_bowl/place_lowres``, extraction
    included, ``kernel`` against ``plain`` within ``HIGHRES_SCORE_GATE`` of
    max|score|;
-15. one JSON line listing each kernel, then the card line, then the result
+15. the agent's sampling runtime (run after phase 9, before phase 10's
+   profiling), with the served preprocessing: (a) one ``pick_lowres`` stage
+   (32 seeds x 100 steps) on ``kernel``, ``fused`` and ``plain`` and the
+   whole place request on ``kernel``, each through the runtime (its first
+   request captures every entry, its second only replays) against the eager
+   agent (``use_runtime=False``) with the same generator seed: final poses
+   within ``RUNTIME_POSE_GATE`` (or twice the spread of two eager runs, if
+   they differ), the critic's energies, and launch counts equal to the
+   eager run's; (b) after ``warmup`` with the shapes of the later requests,
+   two requests add no entry (``cache_sizes``), with the capture seconds and
+   the graph pool's memory of every runtime; (c) one Langevin step of the
+   pick and place first stages, eager and captured: wall ms, device busy,
+   idle share and kernels a step;
+16. one JSON line listing each kernel, then the card line, then the result
    line ``{"ok": true, "device": {...}}``.  A kernel's own keys hold the pick
    tensor field and the launches of the pick path it was first measured on;
    ``by_shape`` holds K1's and K3's records at the pick, place and sapien key
    fields and the keypoint field, ``launches_by_path`` the counts of the
-   other paths (per rank on the sharded paths; phase 14's tools by name).
+   other paths (per rank on the sharded paths; phase 14's tools by name;
+   ``captured_*`` the runtime's replayed requests of phase 15).
 
 There is no CPU fallback: without a CUDA device the script exits 1.
 """
@@ -278,6 +293,9 @@ REL_KERNEL_GATE = 3e-4
 POST_WITNESS_GATE = 10 * REL_KERNEL_GATE
 HIGHRES_SCORE_GATE = 1e-3  # one score evaluation of the forward-only model, kernel against plain, of max|score|
 MD_WORLD = 2  # phase 13: two ranks on the one card, over gloo (nccl refuses two ranks on one GPU)
+# phase 15: the runtime's captured rollout against the eager one, max-abs final pose (the same kernels in the same
+# order, so equal unless an op of the path is not deterministic; then twice the spread of two eager runs)
+RUNTIME_POSE_GATE = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -1897,6 +1915,162 @@ def tools_phase(dev) -> dict:
     return summary
 
 
+def rollout_timing(run, steps: int, reps: int = 3):
+    """(wall ms a step (median of ``reps`` unprofiled runs), device-busy ms a
+    step, kernels a step) of ``run()``, one rollout of ``steps`` steps whose
+    caches and runtime entries exist already; the device numbers from
+    ``torch.profiler`` (None when it records no kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in events) / 1e3 / steps if events else None
+    return float(np.median(walls)) * 1e3 / steps, busy, len(events) / steps
+
+
+def langevin_step_rows(agent, scene, grasp, Ts_init, sched, generator) -> dict:
+    """One Langevin step of ``agent``'s first stage at the first stage of
+    ``sched``, eager (``langevin_sample``) and captured (its runtime's
+    rollout entry, replayed): for each, :func:`rollout_timing`'s wall ms,
+    device busy ms, idle share and kernels a step."""
+    import torch
+
+    from diffusion_edf_tpu_torch.diffusion.langevin import build_schedule, langevin_sample
+
+    b, rt = agent.models[0], agent._runtimes[0]
+    st = build_schedule(diffusion_schedules=sched["diffusion_schedules_list"][0], N_steps=sched["N_steps_list"][0],
+                        timesteps=sched["timesteps_list"][0], ang_mult=b.ang_mult, lin_mult=b.lin_mult,
+                        temperatures=sched["temperatures_list"][0], time_exponent_temp=sched["time_exponent_temp"],
+                        time_exponent_alpha=sched["time_exponent_alpha"])
+    steps = len(st.t)
+    T0 = torch.as_tensor(np.concatenate([Ts_init[:, :4], Ts_init[:, 4:] * np.float32(100.0)], -1),
+                         device=b.device)[None]
+    with torch.no_grad(), rt.lock:
+        km, q = rt.extract([agent._prep(scene, grasp)], batched=False)
+        timings = {
+            "eager": rollout_timing(lambda: langevin_sample(lambda T, t: b.model.score(T, km, q, t), T0, st,
+                                                            b.ang_mult, b.lin_mult, generator=generator), steps),
+            "captured": rollout_timing(lambda: rt.rollout(km, q, T0, st, generator, True, False), steps),
+        }
+    return {name: dict(wall_ms=wall, busy_ms=busy, idle_share=None if busy is None else 1 - busy / wall,
+                       kernels=kernels, steps=steps) for name, (wall, busy, kernels) in timings.items()}
+
+
+def step_row_text(row) -> str:
+    busy, idle = row["busy_ms"], row["idle_share"]
+    busy_text = "not measured" if busy is None else f"{busy:.3f} ms"
+    idle_text = "not measured" if idle is None else f"{idle:.3f}"
+    return f"wall {row['wall_ms']:.3f} ms, device busy {busy_text}, idle share {idle_text}, kernels {row['kernels']:.1f}"
+
+
+def runtime_runs(label, make_agent, scene, grasp, Ts, schedule, gen):
+    """Phase 15's comparison on one path: two eager requests (their spread),
+    then one agent through the runtime twice (capture, then replays only),
+    the same generator seed each time.  Returns its record."""
+    import torch
+
+    runs = {}
+    for name, use_runtime in (("eager", False), ("eager again", False), ("captured", True), ("replayed", True)):
+        agent = make_agent(use_runtime) if name != "replayed" else agent
+        reset_counters()
+        t = time.perf_counter()
+        traj, _, _, info = agent.sample(scene, grasp, Ts, generator=gen(1), **schedule)
+        torch.cuda.synchronize()
+        runs[name] = dict(traj=traj, launches=counters(), s=time.perf_counter() - t, info=info)
+    eager = runs["eager"]["traj"]
+    spread = float(np.abs(runs["eager again"]["traj"][-1] - eager[-1]).max())
+    gate = RUNTIME_POSE_GATE if spread == 0.0 else max(RUNTIME_POSE_GATE, 2 * spread)
+    diff = {k: float(np.abs(runs[k]["traj"][-1] - eager[-1]).max()) for k in ("captured", "replayed")}
+    rec = dict(spread=spread, gate=gate, diff=diff, launches={k: v["launches"] for k, v in runs.items()},
+               request_s={k: v["s"] for k, v in runs.items()},
+               ms_per_step={k: 1e3 * sum(v["info"]["rollout_s"]) / sum(v["info"]["steps"]) for k, v in runs.items()},
+               cache_sizes=[rt.cache_sizes() for rt in agent._runtimes],
+               capture_s=[round(rt.capture_s(), 4) for rt in agent._runtimes], agent=agent)
+    if agent.critic is not None:
+        e = runs["eager"]["info"]["energy"]
+        rec["energy_diff"] = max(float(np.abs(runs[k]["info"]["energy"] - e).max()) for k in ("captured", "replayed"))
+        rec["energy_gate"] = gate * max(1.0, float(np.abs(e).max()))
+        rec["cache_sizes"].append(agent._critic_runtime.cache_sizes())
+        rec["capture_s"].append(round(agent._critic_runtime.capture_s(), 4))
+    energies = f"; energies {rec['energy_diff']:.3g} apart" if "energy_diff" in rec else ""
+    log(f"15 {label}: captured vs eager final poses {diff['captured']:.3g}, replayed {diff['replayed']:.3g} (gate "
+        f"{gate:.3g}; two eager runs {spread:.3g} apart){energies}; launches eager {rec['launches']['eager']}, "
+        f"captured {rec['launches']['captured']}, replayed "
+        f"{rec['launches']['replayed']}; request s {({k: round(v, 3) for k, v in rec['request_s'].items()})}; rollout "
+        f"ms a step {({k: round(v, 3) for k, v in rec['ms_per_step'].items()})}; entries {rec['cache_sizes']}; capture "
+        f"s {rec['capture_s']}")
+    if spread > 0.0:
+        log(f"15 {label}: two eager runs differ by {spread:.3g}: an op of this path is not deterministic")
+    if not (max(diff.values()) <= gate and rec.get("energy_diff", 0.0) <= rec.get("energy_gate", 0.0)
+            and runs["captured"]["launches"] == runs["eager"]["launches"]
+            == runs["replayed"]["launches"] and np.isfinite(runs["replayed"]["traj"]).all()):
+        raise SmokeFailure(f"15 {label}: the runtime's rollout or its launch counts differ from the eager agent's")
+    return rec
+
+
+def runtime_phase(dev, bundle, scene, grasp, pbundles, pre_unpre, pscene, pgrasp, Ts_init) -> dict:
+    """Phase 15 (run after phase 9): the sampling runtime on the card at full
+    width (see the module docstring), with the served preprocessing, which
+    draws nothing (so a second request sees the clouds of the first).
+    Returns its summary."""
+    import torch
+
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    summary = {}
+    for impl in ("kernel", "fused", "plain"):
+        bundle.model.set_edge_impl(impl)
+        summary[f"pick_lowres_{impl}"] = runtime_runs(
+            f"pick_lowres stage ({impl}, {N_SEEDS} seeds x {N_STEPS} steps)",
+            lambda rt: DiffusionEdfAgent([bundle], *pre_unpre, use_runtime=rt), scene, grasp, Ts_init, SCHEDULE, gen)
+    bundle.model.set_edge_impl(None)
+    summary["place_request_kernel"] = runtime_runs(
+        f"place request (kernel, {N_SEEDS} seeds)",
+        lambda rt: DiffusionEdfAgent(pbundles[:2], *pre_unpre, critic=pbundles[2], use_runtime=rt),
+        pscene, pgrasp, Ts_init, PICK_REQUEST, gen)
+
+    # no new entry after a warmup with the shapes of the later requests, and two of them
+    paths = (("pick_lowres", [bundle], None, scene, grasp, SCHEDULE),
+             ("place", pbundles[:2], pbundles[2], pscene, pgrasp, PICK_REQUEST))
+    for label, models, critic, sc_, gr_, sched in paths:
+        agent = DiffusionEdfAgent(models, *pre_unpre, critic=critic)
+        agent.warmup(sc_, gr_, n_seeds=N_SEEDS, diffusion_configs=sched, record_trajectory=True)
+        runtimes = agent._runtimes + ([agent._critic_runtime] if critic is not None else [])
+        before = [rt.cache_sizes() for rt in runtimes]
+        for i in range(2):
+            agent.sample(sc_, gr_, seed_poses(N_SEEDS, seed=70 + i), generator=gen(i), **sched)
+        after = [rt.cache_sizes() for rt in runtimes]
+        rec = summary[f"{label}_entries"] = dict(
+            after_warmup=before, after_two_requests=after, capture_s=[round(rt.capture_s(), 4) for rt in runtimes],
+            pool_mb=[None if rt.pool_bytes() is None else rt.pool_bytes() / 1e6 for rt in runtimes])
+        log(f"15 {label}: entries after warmup {before}; after two requests {after}; capture s {rec['capture_s']}; "
+            f"graph pool MB {rec['pool_mb']}")
+        if before != after or not all(sum(b.values()) for b in before):
+            raise SmokeFailure(f"15 {label}: a request after the warmup added runtime entries")
+
+        # one Langevin step of the first stage, eager and captured: wall, device busy, idle share, kernels
+        for name, row in langevin_step_rows(agent, sc_, gr_, Ts_init, sched, gen(1)).items():
+            summary[f"{label}_step_{name}"] = row
+            log(f"15 {label} Langevin step ({name}, kernel, {N_SEEDS} seeds, {row['steps']}-step first stage): "
+                f"{step_row_text(row)}")
+    for rec in summary.values():
+        rec.pop("agent", None)
+    return summary
+
+
 def reset_counters() -> None:
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
@@ -2402,13 +2576,15 @@ def run() -> int:
 
     with open(os.path.join(CONFIGS, "server.yaml")) as f:  # the served schedule is phase 4's, its knobs server.yaml's
         served = dict(yaml.safe_load(f), pick_diffusion_configs=PICK_REQUEST, place_diffusion_configs=PICK_REQUEST)
+    from diffusion_edf_tpu_torch.serve.cli import warmup_service
+
     agents = dict(pick_agent=DiffusionEdfAgent([bundle, highres], *pre_unpre, critic=critic),
                   place_agent=DiffusionEdfAgent(pbundles[:2], *pre_unpre, critic=pbundles[2]))
-    t = time.perf_counter()
-    agents["pick_agent"].warmup(scene, grasp)
-    agents["place_agent"].warmup(pscene, pgrasp)
-    log(f"serving: warm-up of both agents {time.perf_counter() - t:.1f} s")
     service = AgentService(**agents, configs=json.loads(json.dumps(served)))
+    t = time.perf_counter()
+    warmup_service(service, n_seeds=4)  # the served schedules, and the seed count of the endpoint checks below
+    log(f"serving: warm-up of both agents with the served schedules {time.perf_counter() - t:.1f} s; entries "
+        f"{[rt.cache_sizes() for a in agents.values() for rt in a._runtimes + [a._critic_runtime]]}")
     batched = AgentService(**agents, configs=json.loads(json.dumps(served)), batching=dict(max_batch=4, window_ms=500))
     servers = [run_server(svc, host="127.0.0.1", port=0, block=False) for svc in (service, batched)]
     url, url_b = (f"http://127.0.0.1:{h.server_address[1]}" for h in servers)
@@ -2447,17 +2623,20 @@ def run() -> int:
         def post(i):
             results[i] = http(url_b + "/denoise", reqs[i])
 
+        def batched_round():
+            t = time.perf_counter()
+            threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            return time.perf_counter() - t
+
         reset_counters()
-        t = time.perf_counter()
-        threads = [threading.Thread(target=post, args=(i,)) for i in range(4)]
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join()
-        t_batched = time.perf_counter() - t
+        t_first = batched_round()  # the batched entries' first call: their eager first passes and captures
         l4 = counters()["edge_kernel"]
         per_step = ((l1 - p_extract - 1) / n_total, (l4 - 4 * p_extract - 1) / n_total)
-        log(f"serving: 4 concurrent place requests (20 seeds each): {t_batched * 1e3:.1f} ms, batch_stats "
+        log(f"serving: 4 concurrent place requests (20 seeds each): {t_first * 1e3:.1f} ms, batch_stats "
             f"{batched.batch_stats}; K1 launches {l4} against {l1} for one request ({p_extract} extractor attentions "
             f"a request): {per_step[1]:.2f} against {per_step[0]:.2f} a Langevin step")
         if not (all(c == 200 for c, _ in results) and batched.batch_stats["dispatches"] == 1
@@ -2465,6 +2644,7 @@ def run() -> int:
             raise SmokeFailure("serving: the four place requests did not go through one dispatch")
         for _, out in results + [(200, one)]:
             check_wire_trajectory("place /denoise, 20 seeds", out["trajectories"], n_wire, 20)
+        t_batched = batched_round()  # replays, as the sequential requests below
         t = time.perf_counter()
         lat = []
         for r in reqs:
@@ -2474,7 +2654,8 @@ def run() -> int:
         t_seq = time.perf_counter() - t
         log(f"serving: served place /denoise (20 seeds, 100 + 100 steps, critic): p50 latency "
             f"{np.median(lat) * 1e3:.1f} ms over {len(lat)} ({', '.join(f'{x * 1e3:.1f}' for x in lat)}); 4 sequential "
-            f"{t_seq * 1e3:.1f} ms against 4 batched {t_batched * 1e3:.1f} ms ({t_seq / t_batched:.2f} x)")
+            f"{t_seq * 1e3:.1f} ms against 4 batched {t_batched * 1e3:.1f} ms ({t_seq / t_batched:.2f} x; the first "
+            f"batched round, which captured its entries, {t_first * 1e3:.1f} ms)")
     finally:
         for h in servers:
             h.shutdown()
@@ -2494,6 +2675,11 @@ def run() -> int:
         f"(gate 1e-4)")
     if not batch_err <= 1e-4:
         raise SmokeFailure("sample_batch differs from sample()")
+
+    # ---- phase 15 (run here, before phase 10's profiling of training): the sampling runtime ----
+    t = time.perf_counter()
+    runtime = runtime_phase(dev, bundle, scene, grasp, pbundles, pre_unpre, pscene, pgrasp, Ts_init)
+    log(f"phase 15: {time.perf_counter() - t:.1f} s; runtime summary {json.dumps(runtime)}")
 
     # ---- phase 10: training on the card ----
     t = time.perf_counter()
@@ -2533,6 +2719,10 @@ def run() -> int:
         dict(name="edge_kernel", route="cuda", source=src + "edge_kernel.cu",
              replaces="diffusion_edf_tpu/nn/edge_kernel.py:477", launches=launches, max_abs_err=max_err,
              launches_by_path=dict(pick_lowres_stage=launches, place_request=count8["edge_kernel"],
+                                   captured_pick_lowres_stage=runtime["pick_lowres_kernel"]["launches"]["replayed"][
+                                       "edge_kernel"],
+                                   captured_place_request=runtime["place_request_kernel"]["launches"]["replayed"][
+                                       "edge_kernel"],
                                    eval_pick_cascade=evaluation["pick"]["launches"]["edge_kernel"],
                                    eval_place_cascade=evaluation["place"]["launches"]["edge_kernel"],
                                    sapien_lowres_stage=sapien["stage"]["launches"]["kernel"]["edge_kernel"],
@@ -2556,6 +2746,7 @@ def run() -> int:
              replaces="diffusion_edf_tpu/nn/fused_attention.py:331", launches=count4["fused_attention"],
              max_abs_err=k3_err, launches_by_path=dict(
                  pick_request=count4["fused_attention"], place_request=count8f["fused_attention"],
+                 captured_pick_lowres_stage=runtime["pick_lowres_fused"]["launches"]["replayed"]["fused_attention"],
                  sapien_lowres_stage=sapien["stage"]["launches"]["fused"]["fused_attention"],
                  query_sharded_score_by_rank=multi["sharded_score"]["query_fused"]["launches"],
                  critic_cascade_eval=tools["critic"]["energy_launches"]["fused"]["fused_attention"]),

@@ -10,22 +10,40 @@ folded into the rows of the key tensor field (each query point still attends
 only to its own request's key points), so the edge kernels see R times the
 rows of one request.  ``sample`` is ``sample_batch`` of one request.
 
+Each bundle, and the critic, has a :class:`_BundleRuntime` (the
+counterpart of the JAX package's), built once with the agent: its eight
+entry points (``extract_key``, ``extract_query``, ``rollout``, ``energy``,
+and their request-batched ``_b`` variants, which ``sample_batch`` uses) hold
+one entry per input shape, each with static buffers and ``graphs.Program``s:
+on CUDA a graph captured at the entry's first call (one for the whole
+extraction or energy, one for each variant of the Langevin step: with noise,
+and at temperature 0), replayed at every later call; on the CPU the same
+entries run eagerly.  ``cache_sizes()`` counts the entries, as the JAX
+runtime counts its compiled executables: after a :meth:`DiffusionEdfAgent.warmup`
+with the shapes of later calls, those calls add none.  An entry is dropped
+when its bundle's parameters are written (their version counters), moved,
+or when the model's ``edge_impl`` or training mode changes.
+
 Given a mesh, each Langevin rollout is seed-sharded over its ``data`` axis
 (``parallel/sharded.py::sharded_langevin_sample``): every rank extracts the
 features, rolls out its block of every request's seeds and gathers the
-final poses; the critic and the next stage see all of them.
+final poses; the critic and the next stage see all of them.  That path, and
+an agent built with ``use_runtime=False``, runs eagerly.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .data import stack_points
-from .diffusion.langevin import build_schedule, langevin_sample
+from .data import FeaturedPoints, stack_points
+from .diffusion.langevin import (N_COLUMNS, LangevinSchedule, build_schedule, draws_noise, langevin_sample,
+                                 langevin_step, schedule_table)
+from .graphs import Program, copy_into
 from .nn import cuda_build
 from .parallel.mesh import Mesh
 from .parallel.sharded import sharded_langevin_sample
@@ -82,6 +100,185 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+ENTRY_POINTS = ("extract_key", "extract_query", "rollout", "energy",
+                "extract_key_b", "extract_query_b", "rollout_b", "energy_b")
+
+
+@dataclasses.dataclass
+class _Entry:
+    """An extraction entry (one padded cloud a request, static; the program
+    stacks its outputs over requests), or an energy entry (the poses, static;
+    ``src`` the extraction outputs that its program reads)."""
+
+    inputs: List[Any]
+    program: Program
+    src: Any = None
+
+    @property
+    def capture_s(self) -> float:
+        return self.program.capture_s
+
+
+class _Rollout:
+    """The Langevin rollout of one shape: static poses, step counter,
+    schedule table, noise draws and trajectory, and one program for each
+    variant of the step the schedule's pattern holds (True: with noise)."""
+
+    def __init__(self, score_fn, src, R: int, nT: int, pattern: Tuple[bool, ...], record: bool,
+                 device: torch.device, pool):
+        S = len(pattern)
+        self.src, self.pattern, self.device, self.pool = src, pattern, device, pool
+        self.score_fn = score_fn
+        self.T = torch.zeros(R, nT, 7, device=device)
+        self.step = torch.zeros(1, dtype=torch.long, device=device)
+        self.table = torch.zeros(S, N_COLUMNS, device=device)
+        self.noise = torch.zeros(S, 2, R, nT, 3, device=device) if any(pattern) else None
+        self.traj = torch.zeros(S + 1, R, nT, 7, device=device) if record else None
+        self.steps: Dict[bool, Program] = {}
+
+    def _step_fn(self, hot: bool):
+        # the step closes over the buffers, not over self: a cycle would leave the entry's graphs to the
+        # garbage collector, which may run while another graph is being captured
+        score_fn, T, table, step, traj = self.score_fn, self.T, self.table, self.step, self.traj
+        noise = self.noise if hot else None
+
+        def fn():
+            langevin_step(score_fn, T, table, step, None if noise is None else noise.index_select(0, step)[0], traj)
+        return fn
+
+    def run(self, T0: torch.Tensor, table: np.ndarray, generator: Optional[torch.Generator]):
+        self.T.copy_(T0)
+        self.step.zero_()
+        self.table.copy_(torch.as_tensor(table))
+        if self.traj is not None:
+            self.traj[0].copy_(self.T)
+        # the draws the eager rollout makes, in its order: an angular then a linear block a step with noise
+        for i, hot in enumerate(self.pattern):
+            if hot:
+                self.noise[i, 0].normal_(generator=generator)
+                self.noise[i, 1].normal_(generator=generator)
+        for hot in self.pattern:
+            program = self.steps.get(hot)
+            if program is None:  # its first run is this step's
+                self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool)
+            else:
+                program()
+        return self.T, self.traj
+
+    @property
+    def capture_s(self) -> float:
+        return sum(p.capture_s for p in self.steps.values())
+
+
+class _BundleRuntime:
+    """The compiled sampling path of one bundle (see the module docstring).
+    Callers hold ``lock`` from :meth:`extract` until they have read what
+    :meth:`rollout` or :meth:`energy` returned: the buffers are shared."""
+
+    def __init__(self, bundle: ModelBundle):
+        self.bundle = bundle
+        self.lock = threading.RLock()
+        self._attention = [m for m in bundle.model.modules() if hasattr(m, "edge_impl")]
+        self._stamp = None
+        self._drop()
+
+    def _drop(self) -> None:
+        self.entries: Dict[str, Dict[tuple, Any]] = {name: {} for name in ENTRY_POINTS}
+        dev = self.bundle.device
+        self.pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+    def _check(self) -> None:
+        """Drop every entry when the bundle's tensors were written or moved, or
+        its mode or ``edge_impl`` changed: a graph reads the operands derived
+        from the weights that it saw."""
+        model = self.bundle.model
+        stamp = (model.training, tuple(m.edge_impl for m in self._attention),
+                 tuple((id(t), t.data_ptr(), t._version) for t in (*model.parameters(), *model.buffers())))
+        if stamp != self._stamp:
+            if self._stamp is not None:
+                self._drop()
+            self._stamp = stamp
+
+    def cache_sizes(self) -> Dict[str, int]:
+        """The number of entries (shapes) of each entry point."""
+        return {name: len(self.entries[name]) for name in ENTRY_POINTS}
+
+    def capture_s(self) -> float:
+        """Seconds spent capturing the entries held now (0 on the CPU)."""
+        return sum(e.capture_s for entries in self.entries.values() for e in entries.values())
+
+    def pool_bytes(self) -> Optional[int]:
+        """Device memory of the runtime's graph pool (None on the CPU)."""
+        if self.pool is None:
+            return None
+        segments = torch.cuda.memory_snapshot()
+        return sum(s["total_size"] for s in segments if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
+
+    def _extraction(self, name: str, clouds: List[FeaturedPoints], fn) -> Any:
+        key = (len(clouds), clouds[0].n)
+        entry = self.entries[name].get(key)
+        if entry is not None:
+            copy_into(entry.inputs, clouds)
+            return entry.program()
+        dev = self.bundle.device
+        inputs = [FeaturedPoints(x=c.x.to(dev), f=c.f.to(dev), mask=c.mask.to(dev)) for c in clouds]
+        entry = self.entries[name][key] = _Entry(inputs, Program(lambda: fn(inputs), dev, self.pool))
+        return entry.program.out
+
+    def extract(self, preps, batched: bool):
+        """Every request's key scales and query (``preps``: processed (scene,
+        grasp) pairs), stacked over requests: the static outputs of the
+        ``extract_key`` and ``extract_query`` entries (``_b`` if batched)."""
+        self._check()
+        b, sfx = self.bundle, "_b" if batched else ""
+        model = b.model
+
+        def keys(inputs):
+            return [stack_points(scale) for scale in zip(*(model.get_key_pcd_multiscale(c) for c in inputs))]
+
+        def queries(inputs):
+            return stack_points([model.get_query_pcd(c) for c in inputs])
+
+        key_ms = self._extraction("extract_key" + sfx, [pad_pointcloud(s, b.n_scene_pad) for s, _ in preps], keys)
+        query = self._extraction("extract_query" + sfx, [pad_pointcloud(g, b.n_grasp_pad) for _, g in preps],
+                                 queries)
+        return key_ms, query
+
+    def rollout(self, key_ms, query, T0: torch.Tensor, sched: LangevinSchedule, generator, record: bool,
+                batched: bool):
+        """The Langevin rollout from ``T0`` (R, nT, 7) on :meth:`extract`'s
+        outputs: the static (final poses, trajectory (S + 1, R, nT, 7) or
+        None).  Its noise is what :func:`langevin_sample` draws from
+        ``generator``."""
+        R, nT = T0.shape[:2]
+        pattern = tuple(bool(h) for h in draws_noise(sched))
+        name, key = "rollout" + ("_b" if batched else ""), (R, nT, len(pattern), record, pattern)
+        entry = self.entries[name].get(key)
+        if entry is None or entry.src[0] is not key_ms or entry.src[1] is not query:
+            model = self.bundle.model
+
+            def score_fn(T, t):
+                return model.score(T, key_ms, query, t)
+
+            entry = self.entries[name][key] = _Rollout(score_fn, (key_ms, query), R, nT, pattern, record,
+                                                       self.bundle.device, self.pool)
+        return entry.run(T0, schedule_table(sched, self.bundle.ang_mult, self.bundle.lin_mult), generator)
+
+    def energy(self, key_ms, query, T: torch.Tensor, batched: bool) -> torch.Tensor:
+        """The energies (R, nT) of the poses ``T`` on :meth:`extract`'s outputs."""
+        R, nT = T.shape[:2]
+        name = "energy" + ("_b" if batched else "")
+        entry = self.entries[name].get((R, nT))
+        if entry is not None and entry.src[0] is key_ms and entry.src[1] is query:
+            copy_into(entry.inputs, [T])
+            return entry.program()
+        dev, model = self.bundle.device, self.bundle.model
+        Ts, ones = T.to(dev).clone(), torch.ones(R, nT, device=dev)
+        program = Program(lambda: model.energy(Ts, key_ms, query, ones), dev, self.pool)
+        self.entries[name][(R, nT)] = _Entry([Ts], program, (key_ms, query))
+        return program.out
+
+
 class DiffusionEdfAgent:
     def __init__(
         self,
@@ -91,6 +288,7 @@ class DiffusionEdfAgent:
         preprocess_seed: Optional[int] = None,
         critic: Optional[ModelBundle] = None,
         mesh: Optional[Mesh] = None,
+        use_runtime: bool = True,
     ):
         """``preprocess_seed`` seeds the jitter ops of the preprocessing;
         ``critic`` is an EBM model whose energy orders the sampled poses;
@@ -98,10 +296,14 @@ class DiffusionEdfAgent:
         (every rank of the mesh calls :meth:`sample` with the same
         arguments and a generator in the same state, and gets the same
         result: one process's on the seeds padded to a multiple of the axis
-        size)."""
+        size).  ``use_runtime=False`` runs every stage eagerly (extraction,
+        ``langevin_sample``, energy): the reference the runtime is held to."""
         self.models = list(models)
         self.mesh = mesh
         self.critic = critic
+        self.use_runtime = use_runtime and mesh is None
+        self._runtimes = [_BundleRuntime(b) for b in self.models]
+        self._critic_runtime = _BundleRuntime(critic) if critic is not None else None
         self.proc_fn = compose_proc_fn(preprocess_config, seed=preprocess_seed)
         self.unrescale = 1.0  # the unprocess pipeline is a rescale (cm -> m) of poses
         for op in unprocess_config:
@@ -139,7 +341,7 @@ class DiffusionEdfAgent:
             N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
             diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
             time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
-        ), generator, record_trajectory)
+        ), generator, record_trajectory, batched=False)
         if "energy" in info:
             info["energy"] = info["energy"][0]
         return traj[0], scene_p, grasp_p, info
@@ -180,11 +382,11 @@ class DiffusionEdfAgent:
             N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
             diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
             time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
-        ), generator, record_trajectory, n_seeds)
+        ), generator, record_trajectory, n_seeds, batched=True)
 
     @staticmethod
     def _extract(bundle: ModelBundle, preps):
-        """Every request's key scales and query, stacked over requests."""
+        """Every request's key scales and query, stacked over requests (eagerly)."""
         model, dev = bundle.model, bundle.device
         keys = [model.get_key_pcd_multiscale(pad_pointcloud(s, bundle.n_scene_pad, dev)) for s, _ in preps]
         query = stack_points([model.get_query_pcd(pad_pointcloud(g, bundle.n_grasp_pad, dev)) for _, g in preps])
@@ -192,7 +394,7 @@ class DiffusionEdfAgent:
 
     @torch.no_grad()
     def _run(self, preps, Ts_init: np.ndarray, cfg: Dict[str, Any], generator, record_trajectory: bool,
-             n_seeds: Optional[Sequence[int]] = None):
+             n_seeds: Optional[Sequence[int]] = None, batched: bool = False):
         R, nT = Ts_init.shape[:2]
         pose_scale = 1.0 / self.unrescale if self.unrescale != 1.0 else 1.0
         T0 = np.concatenate([Ts_init[..., :4], Ts_init[..., 4:] * np.float32(pose_scale)], axis=-1)
@@ -204,40 +406,55 @@ class DiffusionEdfAgent:
             T = torch.as_tensor(T0, device=dev) if T is None else T.to(dev)
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(int(np.random.randint(0, 2**31 - 1)))
-            t0 = time.perf_counter()
-            key_ms, query = self._extract(bundle, preps)
-            _sync(dev)
-            t1 = time.perf_counter()
             sched = build_schedule(
                 diffusion_schedules=cfg["diffusion_schedules_list"][mi], N_steps=cfg["N_steps_list"][mi],
                 timesteps=cfg["timesteps_list"][mi], ang_mult=bundle.ang_mult, lin_mult=bundle.lin_mult,
                 temperatures=cfg["temperatures_list"][mi], log_t_schedule=cfg["log_t_schedule"],
                 time_exponent_temp=cfg["time_exponent_temp"], time_exponent_alpha=cfg["time_exponent_alpha"],
             )
-
-            def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
-                return model.score(Ts, key_ms, query, t)
-
-            if self.mesh is None:
-                T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
-                                          generator=generator, record_trajectory=record_trajectory)
+            t0 = time.perf_counter()
+            if self.use_runtime:
+                rt = self._runtimes[mi]
+                with rt.lock:
+                    key_ms, query = rt.extract(preps, batched)
+                    _sync(dev)
+                    t1 = time.perf_counter()
+                    T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory, batched)
+                    T = T.clone()
+                    traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
             else:
-                T, traj = sharded_langevin_sample(self.mesh, score_fn, generator, T, sched, bundle.ang_mult,
-                                                  bundle.lin_mult, record_trajectory=record_trajectory)
+                key_ms, query = self._extract(bundle, preps)
+                _sync(dev)
+                t1 = time.perf_counter()
+
+                def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
+                    return model.score(Ts, key_ms, query, t)
+
+                if self.mesh is None:
+                    T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
+                                              generator=generator, record_trajectory=record_trajectory)
+                else:
+                    T, traj = sharded_langevin_sample(self.mesh, score_fn, generator, T, sched, bundle.ang_mult,
+                                                      bundle.lin_mult, record_trajectory=record_trajectory)
+                traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
             _sync(dev)
             info["extract_s"].append(t1 - t0)
             info["rollout_s"].append(time.perf_counter() - t1)
             info["steps"].append(len(sched.t))
-            traj = traj if record_trajectory else T[None]
-            trajs.append(traj.transpose(0, 1).cpu().numpy())
+            trajs.append(traj if record_trajectory else T[:, None].cpu().numpy())
         Ts_out = np.concatenate(trajs, axis=1)  # (R, steps + stages, nT, 7)
         if self.critic is not None:
             c = self.critic
             dev = c.device
             t0 = time.perf_counter()
-            key_ms, query = self._extract(c, preps)
             Tl = torch.as_tensor(np.ascontiguousarray(Ts_out[:, -1]), device=dev)
-            energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
+            if self.use_runtime:
+                rt = self._critic_runtime
+                with rt.lock:
+                    energy = rt.energy(*rt.extract(preps, batched), Tl, batched).cpu().numpy()
+            else:
+                key_ms, query = self._extract(c, preps)
+                energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
             info["critic_s"] = time.perf_counter() - t0
             if n_seeds is not None:
                 energy[np.arange(nT)[None, :] >= np.asarray(n_seeds)[:, None]] = np.inf
@@ -246,19 +463,23 @@ class DiffusionEdfAgent:
             info["energy"] = np.take_along_axis(energy, order, axis=-1)
         return Ts_out, info
 
-    def warmup(self, scene_pcd: PointCloud, grasp_pcd: PointCloud) -> None:
+    def warmup(self, scene_pcd: PointCloud, grasp_pcd: PointCloud, n_seeds: int = 1,
+               diffusion_configs: Optional[Dict] = None, record_trajectory: bool = False) -> None:
         """Build the CUDA kernels (``nvcc`` at first use, ``nn/cuda_build.py``)
-        and fill the operand caches of every attention (the folded weights and
-        the tensor-core operands, built once per set of weights) with a
-        one-step request of one seed, so that the first request served pays
-        for neither.  Nothing else is warmed: PyTorch compiles nothing per
-        shape, so the request's seeds and steps do not matter."""
+        and prepare every runtime entry that requests of these shapes need:
+        one request of ``n_seeds`` seeds with ``diffusion_configs`` (the
+        ``N_steps_list`` ... dict later :meth:`sample` calls pass; default a
+        one-step schedule) and ``record_trajectory``.  That fills the operand
+        caches of every attention and, on CUDA, captures each entry's graphs,
+        so that later calls of the same shapes capture nothing
+        (``cache_sizes()`` of every runtime stays as it is)."""
         if any(b.device.type == "cuda" for b in self.models):
             cuda_build.build_all()
+        Ts = np.concatenate([np.tile([[1.0, 0, 0, 0]], (n_seeds, 1)), np.zeros((n_seeds, 3))], -1)
         n = len(self.models)
-        self.sample(scene_pcd, grasp_pcd, np.array([[1.0, 0, 0, 0, 0, 0, 0]]), N_steps_list=[[1]] * n,
-                    timesteps_list=[[0.01]] * n, temperatures_list=[[1.0]] * n,
-                    diffusion_schedules_list=[[[1.0, 0.9]]] * n, record_trajectory=False)
+        cfg = diffusion_configs or dict(N_steps_list=[[1]] * n, timesteps_list=[[0.01]] * n,
+                                        temperatures_list=[[1.0]] * n, diffusion_schedules_list=[[[1.0, 0.9]]] * n)
+        self.sample(scene_pcd, grasp_pcd, Ts, record_trajectory=record_trajectory, **cfg)
 
     def unprocess_poses(self, Ts: np.ndarray) -> np.ndarray:
         """cm -> metres on the translation part."""

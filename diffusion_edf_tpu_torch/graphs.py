@@ -1,0 +1,134 @@
+"""Per-shape programs of the sampling path: captured once as CUDA graphs on
+the card, run eagerly on the CPU (the counterpart of the executables that
+``jax.jit`` compiles per input shape).
+
+A :class:`Program` wraps ``fn()``, a function that reads and writes tensors
+it closes over (static buffers) and may return more tensors (its static
+outputs).  Its construction is the first call: ``fn`` runs eagerly, on CUDA
+on a side stream as PyTorch's graph documentation prescribes, which fills
+every operand cache the call reaches (folded weights, tensor-core operands,
+constant tables) so that nothing is copied from the host during the capture.
+On CUDA ``fn`` is then captured into a ``torch.cuda.CUDAGraph`` in the
+caller's memory pool (the capture runs nothing), and the first call's
+outputs are copied into the captured ones.  Each later call replays the
+graph.  On the CPU there is nothing to capture: each later call runs ``fn``
+eagerly and copies its outputs into the first call's, so the CPU runs the
+code that the card captures.  A capture that fails raises; nothing carries
+on eagerly.
+
+The hand-written kernels count their launches in Python globals
+(``nn/edge_kernel.py``: ``launches``, ``launches_bf16``;
+``nn/fused_attention.py``: ``launches``), which a capture bumps without
+running anything and a replay does not bump.  A program takes each
+capture's count back off the counters and adds it again at every replay, so
+they keep counting the kernels that ran on the device: the warmup pass's,
+and those of every replay.
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from .nn import edge_kernel as _ek
+from .nn import fused_attention as _fa
+
+__all__ = ["Program", "launch_counts", "add_launches", "tensors_of", "copy_into"]
+
+_SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+
+def launch_counts() -> Tuple[int, int, int]:
+    """The kernel launch counters: (K1 float32, K2 mixed bfloat16, K3)."""
+    return _ek.launches, _ek.launches_bf16, _fa.launches
+
+
+def add_launches(delta: Tuple[int, int, int]) -> None:
+    _ek.launches += delta[0]
+    _ek.launches_bf16 += delta[1]
+    _fa.launches += delta[2]
+
+
+def tensors_of(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a tree of tensors, lists, tuples, dataclasses and
+    None, in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for item in tree for t in tensors_of(item)]
+    if dataclasses.is_dataclass(tree):
+        return [t for f in dataclasses.fields(tree) for t in tensors_of(getattr(tree, f.name))]
+    raise TypeError(f"not a tree of tensors: {type(tree).__name__}")
+
+
+def copy_into(dst: Any, src: Any) -> None:
+    """Copy every tensor of ``src`` into the tensor at its place in ``dst``
+    (trees of the same structure).  A tensor that is its own destination
+    (an output that is a parameter or a static input) is left alone, so no
+    parameter's version counter moves."""
+    a, b = tensors_of(dst), tensors_of(src)
+    if len(a) != len(b):
+        raise ValueError("copy_into: the trees differ")
+    for x, y in zip(a, b):
+        if x.data_ptr() != y.data_ptr() or x.stride() != y.stride() or x.shape != y.shape:
+            x.copy_(y)
+
+
+def _side_stream(device: torch.device) -> "torch.cuda.Stream":
+    s = _SIDE_STREAMS.get(device)
+    if s is None:
+        s = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return s
+
+
+class Program:
+    """``fn`` run once now and captured on CUDA (see the module docstring);
+    call it to run it again.  ``out`` holds the static outputs, ``delta``
+    the kernel launches of one run, ``capture_s`` the seconds of the capture
+    (0 on the CPU)."""
+
+    def __init__(self, fn: Callable[[], Any], device: torch.device, pool: Optional[tuple] = None):
+        self.fn = fn
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.capture_s = 0.0
+        if device.type != "cuda":
+            before = launch_counts()
+            self.out = fn()
+            self.delta = tuple(a - b for a, b in zip(launch_counts(), before))
+            return
+        side, main = _side_stream(device), torch.cuda.current_stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = fn()
+        main.wait_stream(side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        warm = launch_counts()
+        # no garbage collection while capturing: freeing another graph then (a destroyed runtime's, say) is an
+        # operation a capture forbids, and it invalidates the capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
+            captured = tuple(a - b for a, b in zip(launch_counts(), warm))
+            add_launches(tuple(-d for d in captured))
+        self.graph, self.out, self.delta = graph, out, captured
+        copy_into(out, first)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self) -> Any:
+        if self.graph is None:
+            copy_into(self.out, self.fn())
+        else:
+            self.graph.replay()
+            add_launches(self.delta)
+        return self.out

@@ -67,7 +67,9 @@ class KeypointExtractor(nn.Module):
         self.weight_activation = weight_activation
         self.pool_ratio = float(keypoint_kwargs["pool_ratio"])
         bbox = keypoint_kwargs.get("bbox")
-        self.bbox = None if bbox is None else np.asarray(bbox, dtype=np.float32)  # (3, 2)
+        # (3, 2), a buffer so that it moves with the model and no call copies it to the device
+        self.register_buffer("bbox", None if bbox is None else torch.as_tensor(np.asarray(bbox, dtype=np.float32)),
+                             persistent=False)
         self.feature_extractor = build_feature_extractor(feature_extractor_name, feature_extractor_kwargs)
         tf = dict(tensor_field_kwargs, irreps_input=feature_extractor_kwargs["irreps_output"],
                   irreps_query=None, edge_context_emb_dim=None)
@@ -84,7 +86,7 @@ class KeypointExtractor(nn.Module):
     def init_query_points(self, src_points: FeaturedPoints) -> FeaturedPoints:
         mask = src_points.mask
         if self.bbox is not None:
-            b = torch.as_tensor(self.bbox, device=src_points.x.device)
+            b = self.bbox
             mask = mask & torch.all((src_points.x >= b[:, 0]) & (src_points.x <= b[:, 1]), dim=-1)
         m = max(1, math.ceil(self.pool_ratio * src_points.n))
         idx, valid = farthest_point_sampling(src_points.x, m, mask=mask)

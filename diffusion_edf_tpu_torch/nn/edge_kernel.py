@@ -84,6 +84,8 @@ __all__ = [
 
 # Kernel launches since import (or the last reset by a caller), float32 and
 # mixed bfloat16; one per launch of the CUDA kernel, none for the plain version.
+# A CUDA-graph capture bumps them without running anything and a replay does not;
+# ``graphs.Program`` takes a capture's count back and adds it at every replay.
 launches = 0
 launches_bf16 = 0
 

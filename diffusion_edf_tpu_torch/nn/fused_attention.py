@@ -45,6 +45,8 @@ __all__ = ["fused_attention", "fused_attention_plain", "compact_plain", "tile_se
 
 # Kernel launches since import (or the last reset by a caller); one per
 # launch of the CUDA kernel, none for the plain version.
+# A CUDA-graph capture bumps them without running anything and a replay does not;
+# ``graphs.Program`` takes a capture's count back and adds it at every replay.
 launches = 0
 
 _TILE = 64  # valid slots a block takes through the edge segment

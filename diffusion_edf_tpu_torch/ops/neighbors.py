@@ -157,21 +157,24 @@ def farthest_point_sampling(
     seeded at ``start_idx`` (default: the first valid point).  If fewer than
     ``n_samples`` points are valid, surplus slots repeat chosen points with
     ``valid=False``.  ``argmax`` returns the first maximum, as
-    ``jnp.argmax`` does."""
+    ``jnp.argmax`` does.  Nothing is read on the host or copied to the
+    device, so a CUDA graph can capture it."""
     n = x.shape[0]
     if mask is None:
         mask = torch.ones(n, dtype=torch.bool, device=x.device)
-    start = torch.argmax(mask.to(torch.int32)) if start_idx is None else torch.as_tensor(start_idx)
-    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    inf = x.new_full((), float("inf"))
     mindist = torch.where(mask, inf, -inf)
     idx = torch.zeros(n_samples, dtype=torch.long, device=x.device)
-    idx[0] = start
+    if start_idx is None:
+        idx[0] = torch.argmax(mask.to(torch.int32))
+    else:
+        idx[0] = start_idx
     for i in range(1, n_samples):
-        d2 = torch.sum(torch.square(x - x[idx[i - 1]]), dim=-1)
+        d2 = torch.sum(torch.square(x - x.index_select(0, idx[i - 1 : i])), dim=-1)
         mindist = torch.minimum(mindist, torch.where(mask, d2, -inf))
         idx[i] = torch.argmax(mindist)
-    n_valid = int(mask.sum())
-    valid = torch.arange(n_samples, device=x.device) < min(n_valid, n_samples)
+    # the arange stops below n_samples, so this is arange < min(valid count, n_samples)
+    valid = torch.arange(n_samples, device=x.device) < mask.sum()
     return idx, valid
 
 

@@ -4,8 +4,9 @@ options and ``--device``):
     python -m diffusion_edf_tpu_torch.serve.cli [--family-dir DIR] [--port 8329] [--batch 4]
 
 Builds the pick and place agent cascades of a config family (``agent.yaml``,
-``server.yaml``, ``preprocess.yaml``), warms them up (kernel build and
-operand caches) and serves them over HTTP.  A model whose checkpoint file is
+``server.yaml``, ``preprocess.yaml``), warms them up with the served
+diffusion configs (kernel build, operand caches, and on CUDA the graphs of
+every entry a request of those shapes needs) and serves them over HTTP.  A model whose checkpoint file is
 missing gets seeded initial weights, as in the JAX CLI.
 """
 from __future__ import annotations
@@ -57,14 +58,19 @@ def build_service(family_dir: str, with_critic: bool = True, n_scene_pad: int = 
     return AgentService(pick_agent, place_agent, server_cfg, batching=batching)
 
 
-def warmup_service(service: AgentService, n_points: int = 256, seed: int = 0) -> None:
-    """One short request per agent on a random cloud: builds the kernels and
-    fills the operand caches before the first request is served."""
+def warmup_service(service: AgentService, n_points: int = 256, seed: int = 0, n_seeds: int = 1) -> None:
+    """One request per agent on a random cloud, with the agent's served
+    diffusion configs (``<task>_diffusion_configs``), ``n_seeds`` seeds and
+    the trajectory recorded, as ``/denoise`` samples: builds the kernels,
+    fills the operand caches and prepares the runtime entries of those
+    shapes before the first request is served."""
     rng = np.random.default_rng(seed)
     cloud = PointCloud(rng.uniform(-0.1, 0.1, (n_points, 3)), rng.uniform(0, 1, (n_points, 3)))
-    for agent in service.agents.values():
+    configs = service.get_configs()
+    for task, agent in service.agents.items():
         if agent is not None:
-            agent.warmup(cloud, cloud)
+            agent.warmup(cloud, cloud, n_seeds=n_seeds, diffusion_configs=configs[f"{task}_diffusion_configs"],
+                         record_trajectory=True)
 
 
 def main(argv=None):

@@ -3,10 +3,13 @@
 :func:`trace` records a region with ``torch.profiler`` (host and, where
 there is a card, CUDA activity) and writes a Chrome / Perfetto trace into
 ``log_dir``.  The JAX module's other function, ``setup_compilation_cache``,
-keeps XLA's compiled programs across processes; the port compiles nothing
-per shape, and its one compile, ``nvcc`` of the CUDA kernels, is kept
-across processes already: ``nn/cuda_build.py`` writes each library into
-``build/`` under a hash of its sources and loads it from there.
+keeps XLA's compiled programs across processes.  The port's per-shape
+counterpart, the CUDA graphs of the agent's sampling runtime
+(``agent.py``, ``graphs.py``), lives in the process that captured it and is
+captured again by the next (a fraction of a second a shape); its one
+compile, ``nvcc`` of the CUDA kernels, is kept across processes already:
+``nn/cuda_build.py`` writes each library into ``build/`` under a hash of
+its sources and loads it from there.
 """
 from __future__ import annotations
 

@@ -95,8 +95,9 @@ def test_tiny_ebm_energy_matches_jax(tmp_path, edge_impl):
 
 
 def test_tiny_cascade_with_critic_matches_jax(tmp_path):
-    """lowres -> highres -> critic: final poses within the pose gate, the
-    same energy order, ``info["energy"]`` ascending and within 1e-4."""
+    """lowres -> highres -> critic, the port through its sampling runtime:
+    final poses within the pose gate, the same energy order,
+    ``info["energy"]`` ascending and within 1e-4."""
     (t1, j1), (t2, j2), (tc, jc) = (_bundles(tmp_path, n, ebm, s) for n, ebm, s in
                                     (("low", False, 3), ("high", False, 4), ("ebm", True, 5)))
     sp, sc, gp, gc = _clouds()
@@ -110,8 +111,12 @@ def test_tiny_cascade_with_critic_matches_jax(tmp_path):
         diffusion_schedules_list=[[[1.0, 0.15], [0.15, 0.09]], [[0.09, 0.03], [0.03, 0.012]]],
         log_t_schedule=True, time_exponent_temp=1.0, time_exponent_alpha=0.5,
     )
-    traj_t, _, _, info_t = TAgent([t1, t2], PREPROCESS, UNPROCESS, critic=tc).sample(
+    runtime_agent = TAgent([t1, t2], PREPROCESS, UNPROCESS, critic=tc)
+    traj_t, _, _, info_t = runtime_agent.sample(
         TPC(sp, sc), TPC(gp, gc), Ts_init, generator=torch.Generator().manual_seed(0), **diff)
+    # the port's cascade went through its sampling runtime: one rollout a stage, one critic energy
+    assert [rt.cache_sizes()["rollout"] for rt in runtime_agent._runtimes] == [1, 1]
+    assert runtime_agent._critic_runtime.cache_sizes()["energy"] == 1
     traj_j, _, _, info_j = JAgent([j1, j2], PREPROCESS, UNPROCESS, critic=jc).sample(
         JPC(sp, sc), JPC(gp, gc), Ts_init, key=jax.random.PRNGKey(0), **diff)
     assert traj_t.shape == traj_j.shape == (4 + 1 + 3 + 1, 4, 7)

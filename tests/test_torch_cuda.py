@@ -344,3 +344,136 @@ def test_graph_attention_routes_autograd_and_dropout_to_plain():
         with pytest.raises(RuntimeError, match="no backward"):
             run()
     assert (tek.launches, tek.launches_bf16, tfa.launches) == before
+
+
+# ---- the agent's sampling runtime: captured CUDA graphs against the eager rollout ----
+
+TINY_IRREPS = "8x0e+4x1e+2x2e"
+TINY_MODEL = dict(  # the tiny pick model of the CPU parity tests (__graft_entry__._model_config(tiny=True))
+    model_name="MultiscaleScoreModel",
+    model_kwargs=dict(
+        score_head_kwargs=dict(
+            max_time=1.0, time_emb_mlp=[32, 32, 16], ang_mult=2.5, lin_mult=15.0,
+            edge_time_encoding=True, query_time_encoding=False,
+            key_tensor_field_kwargs=dict(
+                irreps_output=TINY_IRREPS, irreps_sh=SH, num_heads=2, fc_neurons=[-1, 16, 16], length_emb_dim=16,
+                r_cluster_multiscale=[5.0, None], k_multiscale=[8, 64], n_layers=1, irreps_mlp_mid=2,
+                cutoff_method="edge_attn", r_mincut_nonscalar_sh=0.3, length_enc_max_r=100.0, alpha_drop=0.0),
+        ),
+        key_kwargs=dict(feature_extractor_name="UnetFeatureExtractor", feature_extractor_kwargs=dict(
+            irreps_input="3x0e", irreps_output=TINY_IRREPS, irreps_emb=[TINY_IRREPS, TINY_IRREPS],
+            irreps_edge_attr=[SH] * 2, num_heads=[2, 2], fc_neurons=[[16, 16]] * 2, n_layers=[1, 1],
+            pool_ratio=[0.25, 0.25], radius=[3.0, None], n_layers_midstream=1, k_pool=[8, 8], k_self=[8, 8],
+            k_up=[6, 6], irreps_mlp_mid=2, alpha_drop=0.0)),
+        query_model="StaticKeypointModel",
+        query_kwargs=dict(irreps_output=TINY_IRREPS, keypoint_coords=[[0.5, 0.5, 10.5], [-0.5, -0.5, 10.5]]),
+    ),
+)
+TINY_PREPROCESS = [dict(name="downsample", kwargs=dict(voxel_size=0.01, coord_reduction="average")),
+                   dict(name="rescale", kwargs=dict(rescale_factor=100.0))]
+TINY_UNPROCESS = [dict(name="rescale", kwargs=dict(rescale_factor=0.01))]
+TINY_DIFF = dict(N_steps_list=[[4, 3]], timesteps_list=[[0.04, 0.02]], temperatures_list=[[1.0, 0.0]],
+                 diffusion_schedules_list=[[[1.0, 0.15], [0.15, 0.02]]], log_t_schedule=True,
+                 time_exponent_temp=1.0, time_exponent_alpha=0.5)
+
+
+def _tiny_agent(tmp_path, edge_impl=None, use_runtime=True):
+    import yaml
+
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, load_model_bundle
+
+    d = tmp_path / "tiny"
+    if not d.exists():
+        d.mkdir()
+        (d / "train_configs.yaml").write_text(yaml.safe_dump(dict(model_config_file="score_model_configs.yaml")))
+        (d / "task_configs.yaml").write_text(yaml.safe_dump(dict(task_type="pick")))
+        (d / "score_model_configs.yaml").write_text(yaml.safe_dump(TINY_MODEL))
+    b = load_model_bundle(str(d), device="cuda", n_scene_pad=256, n_grasp_pad=96, init_seed=3, edge_impl=edge_impl)
+    return DiffusionEdfAgent([b], TINY_PREPROCESS, TINY_UNPROCESS, preprocess_seed=0, use_runtime=use_runtime)
+
+
+def _tiny_request():
+    import numpy as np
+
+    from diffusion_edf_tpu_torch.train.data import PointCloud
+
+    rng = np.random.default_rng(0)
+    scene = PointCloud(rng.uniform(-0.12, 0.12, (220, 3)).astype(np.float32), rng.uniform(0, 1, (220, 3)))
+    grasp = PointCloud((rng.uniform(-0.05, 0.05, (60, 3)) + [0, 0, 0.1]).astype(np.float32),
+                       rng.uniform(0, 1, (60, 3)))
+    q = rng.normal(size=(5, 4))
+    Ts = np.concatenate([q / np.linalg.norm(q, axis=-1, keepdims=True),
+                         rng.uniform([-0.03, -0.03, 0.07], [0.03, 0.03, 0.11], (5, 3))], -1)
+    return scene, grasp, Ts.astype(np.float32)
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge_impl", ["kernel", "fused", "plain"])
+def test_captured_rollout_equals_eager(tmp_path, edge_impl):
+    """The tiny model's rollout through the runtime's captured graphs
+    (first call: eager first steps and captures; second call: replays only)
+    against the same agent run eagerly, noise on and a temperature-0
+    segment: final poses within 1e-5, and every kernel launch counted as the
+    eager run counts it."""
+    _need_cuda()
+    import numpy as np
+
+    from diffusion_edf_tpu_torch.graphs import launch_counts
+
+    scene, grasp, Ts = _tiny_request()
+    runs = {}
+    for use_runtime in (False, True):
+        agent = _tiny_agent(tmp_path, edge_impl, use_runtime)
+        for call in range(2):
+            before = launch_counts()
+            traj = agent.sample(scene, grasp, Ts, generator=_gen(1), **TINY_DIFF)[0]
+            torch.cuda.synchronize()
+            runs[use_runtime, call] = traj, tuple(a - b for a, b in zip(launch_counts(), before))
+    (entry,) = agent._runtimes[0].entries["rollout"].values()
+    assert len(entry.steps) == 2 and all(p.graph is not None for p in entry.steps.values())  # noise, temperature 0
+    eager, launched = runs[False, 0]
+    assert np.abs(eager[-1] - eager[0]).max() > 1e-3  # the poses moved
+    for call in range(2):
+        traj, n = runs[True, call]
+        assert np.abs(traj - eager).max() <= 1e-5
+        assert n == launched
+    assert (launched[0] > 0) == (edge_impl == "kernel") and (launched[2] > 0) == (edge_impl == "fused")
+
+
+@pytest.mark.cuda
+def test_capture_meeting_a_host_sync_raises(tmp_path):
+    """A score that reads a value on the host cannot be captured: the
+    sample raises, and neither carries on eagerly nor counts the capture's
+    launches (those of the extraction's first pass and of the rollout's
+    first step stay, as the eager agent counts them for a one-step
+    request)."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.graphs import launch_counts
+
+    scene, grasp, Ts = _tiny_request()
+    one_step = dict(TINY_DIFF, N_steps_list=[[1]], timesteps_list=[[0.04]], temperatures_list=[[1.0]],
+                    diffusion_schedules_list=[[[1.0, 0.15]]])
+    before = launch_counts()
+    _tiny_agent(tmp_path, "kernel", use_runtime=False).sample(scene, grasp, Ts, generator=_gen(1), **one_step)
+    torch.cuda.synchronize()
+    expected = launch_counts()[0] - before[0]
+
+    agent = _tiny_agent(tmp_path, "kernel")
+    model = agent.models[0].model
+    score = model.score
+
+    def syncing_score(*args):
+        ang, lin = score(*args)
+        return ang * float(ang.abs().max() >= 0), lin
+
+    model.score = syncing_score
+    before = launch_counts()
+    with pytest.raises(RuntimeError):
+        agent.sample(scene, grasp, Ts, generator=_gen(1), **TINY_DIFF)
+    torch.cuda.synchronize()
+    assert expected > 0 and launch_counts()[0] - before[0] == expected
+    assert torch.ones(1, device="cuda").sum().item() == 1.0  # the device still works

@@ -9,7 +9,11 @@ keypoint extractor's 52 points), extracts scene and grasp once, then profiles
 of the port) under the chosen ``edge_impl`` and prints: wall time
 per step, device busy time per step (sum of kernel times), the device's idle
 share, kernel launches per step, and the kernels that take the most device
-time.  Needs a CUDA device.
+time.  Then one Langevin step (score and update) of the first stage of
+``chip_smoke.SCHEDULE`` (``PICK_REQUEST``'s for the place model), eager
+(``langevin_sample``) beside captured (the agent's sampling runtime,
+replaying its graphs): wall ms, device busy, idle share and kernels a step
+(``chip_smoke.langevin_step_rows``).  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -64,6 +68,12 @@ def main() -> int:
     print("top kernels by device time per step (us, launches per step):")
     for name, (n, t) in top:
         print(f"  {t:9.1f}  {n:6.1f}  {name[:110]}")
+    sched = cs.PICK_REQUEST if args.model.startswith("place") else cs.SCHEDULE
+    Ts = cs.seed_poses(args.seeds)
+    agent.sample(scene, grasp, Ts, generator=torch.Generator(device=dev).manual_seed(0), **sched)  # captures
+    for name, row in cs.langevin_step_rows(agent, scene, grasp, Ts, sched,
+                                           torch.Generator(device=dev).manual_seed(1)).items():
+        print(f"Langevin step ({name}, {row['steps']}-step first stage): {cs.step_row_text(row)}")
     return 0
 
 
