@@ -84,11 +84,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``sample`` calls, the p50 latency of a served place request and the wall
    time of four batched requests against four sequential ones;
 10. training on the card (``DiffusionEdfTrainer``, ``device="cuda"``) on 8
-   synthetic mug demos, from the shipped checkpoints: (a) one ``pick_lowres``
-   step at full width on the card and on the CPU on the same draws and
-   weights, dropout off, loss and every gradient within ``TRAIN_GATES``
-   (and the CPU step in float64 beside them, as a witness of float32's
-   spread);
+   synthetic mug demos, from the shipped checkpoints, through the trainer's
+   compiled step (one CUDA graph a demo shape, replayed) unless said: (a)
+   one ``pick_lowres`` step at full width on the card and on the CPU on the
+   same draws and weights, dropout off, loss and every gradient within
+   ``TRAIN_GATES`` (and the CPU step in float64 beside them, as a witness of
+   float32's spread);
    (b) 40 ``pick_lowres`` steps with dropout on: every loss and gradient
    norm finite, the loss of 8 fixed evaluation batches at most
    ``EVAL_RISE_GATE`` times its start, ms a step, device busy and idle share
@@ -99,9 +100,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    loss): finite, pair accuracy, ms a step, peak memory, no launch; (d) the
    trained ``pick_lowres`` weights exported, loaded by ``load_model_bundle``
    and sampled on the default ``edge_impl`` (K1, once a step) and on
-   ``"plain"`` with the same seeds and noise, within ``POSE_GATE``; (e) the
-   training command line for one epoch on two demos, as a subprocess, whose
-   checkpoint ``restore`` reads;
+   ``"plain"`` with the same seeds and noise, within ``POSE_GATE``, and the
+   trainer's own model (its derived weights cached before training) on K1
+   within ``RUNTIME_POSE_GATE`` of the export on K1; (e) the training
+   command line for one epoch on two demos, as a subprocess, whose
+   checkpoint ``restore`` reads; (f) for each of ``TRAIN_RUNTIME_CASES``
+   (``pick_lowres`` 8 steps, ``pick_ebm`` 3, ``place_lowres`` 2), one epoch
+   from the shipped checkpoint with one generator seed and demo order,
+   ``TRAIN_EAGER_RUNS`` times eagerly (``use_runtime=False``) and once
+   through the runtime: the captured epoch's losses, parameters, EMA and
+   optimizer state (their norms), each no farther from the nearest eager
+   run than twice the largest difference between two eager runs or
+   ``TRAIN_GATES`` (``spread_gate``), the step counts exact, one
+   entry and none new in a second epoch, no launch of K1, K2 or K3; eager
+   against captured ms a step, device busy, idle share, kernels a step,
+   capture seconds, graph pool;
 11. evaluation: ``diffusion_edf_tpu_torch.eval.evaluate_agent`` on the
    default ``edge_impl`` with the shipped pick cascade (``pick_lowres`` ->
    ``pick_highres``, critic ``pick_ebm_cascade.npz``) and place cascade
@@ -157,10 +170,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``kernel`` and ``fused`` against ``plain`` within ``ENERGY_GATE`` of
    max|E|, the executed sample the same wherever the two lowest plain
    energies differ by more than that, launches counted; three fine-tune
-   steps (``make_train_step``, dropout on) finite with no launch, ms a step;
-   the tool's ``main`` for one epoch: the committed report's keys, K1
-   launched by its three evaluations alone, the float16 export with exactly
-   the shipped key set; (c) ``sweep_schedule.sweep`` with the ``reference``
+   steps (``make_train_step``, dropout on), twice eagerly and once through
+   the tool's compiled step, finite with no launch, the captured steps'
+   losses, parameters and optimizer state held to the eager runs as in
+   10f, eager against captured ms a step, device busy, idle share,
+   kernels a step, capture seconds and graph pool; the tool's ``main`` for
+   one epoch (its step and held-out energies compiled): the committed
+   report's keys, K1 launched by its three evaluations alone, the float16
+   export with exactly the shipped key set; (c) ``sweep_schedule.sweep`` with the ``reference``
    and ``low_floor`` candidates on one demo of the default split, 4 seeds:
    the committed report's keys, success in [0, 1], K1's launches per
    candidate; (d) ``train_eval_loop.main`` on ``panda_bowl/pick_lowres``
@@ -277,6 +294,13 @@ TRAIN_DEMOS, TRAIN_STEPS, CRITIC_STEPS = 8, 40, 20
 # (two runs; at the coarsest scale's LayerNorm bias, a sum over 4 points that cancels; there the card's float32
 # gradient sits 1.3e-3 from a float64 CPU run, the CPU's 3.4e-4); pick_ebm 6.0e-8 and 2.2e-5
 TRAIN_GATES = (1e-4, 1e-2)
+# phase 10f: one epoch a model, eager and through the runtime (model, demos = steps)
+TRAIN_RUNTIME_CASES = (("pick_lowres", 8), ("pick_ebm", 3), ("place_lowres", 2))
+# eager runs of 10f: their largest pairwise difference is the spread; the captured run's difference to the nearest
+# of them is held to twice that or to TRAIN_GATES (train_floor).  Seen on an H100: a 2-step place_lowres run's
+# loss 6.91e-6 from the nearest of 4 eager runs, whose spread was 3.34e-6, on losses ~3; its parameters' largest
+# element 3.23e-4 from the nearest of 3, spread 1.64e-4 (2 lr is 6e-4: one flipped update of a near-zero gradient)
+TRAIN_EAGER_RUNS = 3
 EVAL_RISE_GATE = 1.2  # the evaluation loss after TRAIN_STEPS steps from the shipped checkpoint, of the loss before
 PLACE_MODELS = ("place_lowres", "place_highres", "place_ebm")
 # phase 11: the first demos of the default split with the committed reports' seeds; a demo's median errors against
@@ -790,16 +814,16 @@ def check_wire_trajectory(label, traj, n_steps, n_seeds):
                            "in metres")
 
 
-def train_profile(tr, steps: int = 10):
+def train_profile(step, steps: int = 10):
     """(device-busy ms, kernels) per train step from ``torch.profiler`` over
-    ``steps`` steps (``step_profile``'s method); the steps train."""
+    ``steps`` calls ``step(i)`` (``step_profile``'s method); the steps train."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
-            tr.step(tr.batches[i % len(tr.batches)])
+            step(i)
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = {}
@@ -808,6 +832,56 @@ def train_profile(tr, steps: int = 10):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log("  device ms a step by kernel: " + "; ".join(f"{t:.2f} {n[:70]}" for n, t in top))
     return sum(e.device_time for e in events) / steps / 1e3, len(events) / steps
+
+
+def trainer_step(tr):
+    """``step(i)``: one step of ``tr`` on its demo ``i`` (cyclically)."""
+    return lambda i: tr.step(tr.batches[i % len(tr.batches)])
+
+
+def spread_gate(label, eager: list, captured: dict, floor: dict) -> dict:
+    """Captured against eager training (the same weights, generator seed and
+    demo order; ``state_diff``'s quantities): for each, the captured run's
+    difference to the nearest eager run at most twice the largest difference
+    between two eager runs (the spread) or ``floor``, as phase 15's gate;
+    exactly 0 where both are 0.  The card's backward sums with atomics in no
+    fixed order, so eager runs differ among themselves."""
+    pairs = [state_diff(a, b) for j, a in enumerate(eager) for b in eager[j + 1:]]
+    to_eager = [state_diff(captured, e) for e in eager]
+    spread = {k: max(p[k] for p in pairs) for k in captured}
+    got = {k: min(d[k] for d in to_eager) for k in captured}
+    failed = [k for k in captured if got[k] > max(2 * spread[k], floor[k])]
+    log(f"{label}: captured against the nearest of {len(eager)} eager runs " + ", ".join(
+        f"{k} {got[k]:.3g} (eager spread {spread[k]:.3g}, floor {floor[k]:.3g})" for k in captured))
+    if failed:
+        raise SmokeFailure(f"{label}: captured training departs from eager beyond twice their spread: {failed}")
+    return dict(captured=got, spread=spread, floor=floor)
+
+
+def state_diff(a: dict, b: dict) -> dict:
+    """Two runs' difference: the largest of the step losses' (``loss``);
+    of each list of tensors, the L2 norm of the difference over all their
+    elements.  AMSGrad's normalised update turns a rounding difference in a
+    near-zero gradient into a flipped update of that element (2 lr), so the
+    largest element of a difference says nothing; its norm does."""
+    return {k: max(abs(x - y) for x, y in zip(a[k], b[k])) if k == "loss" else l2(a[k], b[k]) for k in a}
+
+
+def l2(a: list, b: list = None) -> float:
+    """The L2 norm over every element of the tensors ``a`` (of ``a - b``)."""
+    import torch
+
+    diffs = a if b is None else [x.double() - y.double() for x, y in zip(a, b)]
+    return float(torch.stack([d.double().square().sum() for d in diffs]).sum()) ** 0.5
+
+
+def train_floor(state: dict, start: dict) -> dict:
+    """``spread_gate``'s floor for a run from ``start``: ``TRAIN_GATES`` as
+    phase 10a applies them to one step, the loss's relative to the largest
+    loss, the tensors' of the norm of what the run changed in them."""
+    loss_gate, norm_gate = TRAIN_GATES
+    return {k: loss_gate * max(abs(x) for x in v) if k == "loss" else norm_gate * l2(v, start.get(k))
+            for k, v in state.items()}
 
 
 def card_against_cpu(label, tr, cpu_tr, inputs, witness: bool):
@@ -860,7 +934,7 @@ def train_phase(dev, scene, grasp) -> dict:
     its numbers."""
     import torch
 
-    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, load_model_bundle
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, ModelBundle, load_model_bundle
     from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
     from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer, load_configs
 
@@ -904,7 +978,7 @@ def train_phase(dev, scene, grasp) -> dict:
         stats.append(tr.train_epoch())
         epoch_s.append(time.perf_counter() - t)
     wall = time.perf_counter() - t0
-    busy, n_kernels = train_profile(tr)
+    busy, n_kernels = train_profile(trainer_step(tr))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     during = counters()
@@ -948,7 +1022,7 @@ def train_phase(dev, scene, grasp) -> dict:
         t = time.perf_counter()
         cstats.append(ctr.step(ctr.batches[i % len(ctr.batches)]))
         step_s.append(time.perf_counter() - t)
-    busy_c, n_kernels_c = train_profile(ctr, steps=5)
+    busy_c, n_kernels_c = train_profile(trainer_step(ctr), steps=5)
     peak = torch.cuda.max_memory_allocated()
     during = counters()
     ms_c = float(np.median(step_s)) * 1e3
@@ -988,15 +1062,27 @@ def train_phase(dev, scene, grasp) -> dict:
     traj_p, _, _, _ = rollout()
     steps = info_k["steps"][0]
     drift = float(np.abs(traj_k[-1] - traj_p[-1]).max())
-    summary["trained_rollout"] = dict(drift=drift, launches=launched, steps=steps, extractor_attentions=n_extract)
+    # the trainer's own model on K1: its derived weights were cached by 10b's first evaluation, before the
+    # replays wrote the parameters; it must serve the trained weights as the freshly loaded export does
+    tr.model.eval()
+    own = ModelBundle(tr.model, bundle.ang_mult, bundle.lin_mult)
+    agent = DiffusionEdfAgent([own], preprocess, UNPROCESS, preprocess_seed=0)
+    traj_own = agent.sample(scene, grasp, Ts_init, generator=torch.Generator(device=dev).manual_seed(1),
+                            **SCHEDULE)[0]
+    own_drift = float(np.abs(traj_own[-1] - traj_k[-1]).max())
+    summary["trained_rollout"] = dict(drift=drift, launches=launched, steps=steps, extractor_attentions=n_extract,
+                                      own_model_drift=own_drift)
     log(f"10d: trained pick_lowres exported ({os.path.getsize(exported) / 1e6:.1f} MB), {N_SEEDS} seeds x {steps} steps "
         f"on kernel against plain: final-pose drift {drift:.3g} (gate {POSE_GATE}); launches {launched} "
-        f"({n_extract} extractor attentions + one a step); {time.perf_counter() - t0:.1f} s")
+        f"({n_extract} extractor attentions + one a step); the trainer's own model on kernel against the export "
+        f"on kernel {own_drift:.3g} (gate {RUNTIME_POSE_GATE}); {time.perf_counter() - t0:.1f} s")
     if not (np.isfinite(traj_k).all() and drift <= POSE_GATE):
         raise SmokeFailure("10d: the trained weights' kernel rollout drifts from the plain rollout")
     if launched["edge_kernel"] != steps + n_extract:
         raise SmokeFailure("10d: K1 did not launch once a step")
-    del tr, bundle
+    if not own_drift <= RUNTIME_POSE_GATE:
+        raise SmokeFailure("10d: the trainer's model serves other weights than it trained (stale derived weights)")
+    del tr, bundle, own, agent
     torch.cuda.empty_cache()
 
     # ---- 10e: the training command line ----
@@ -1021,7 +1107,86 @@ def train_phase(dev, scene, grasp) -> dict:
         f"{check.epoch}, step {check.steps}")
     if (check.epoch, check.steps) != (1, 2):
         raise SmokeFailure("10e: the CLI's checkpoint restored the wrong epoch or step count")
+    del check
+
+    # ---- 10f: the compiled train step against eager steps ----
+    reset_counters()
+    for name, n_demos in TRAIN_RUNTIME_CASES:
+        summary[f"{name}_captured"] = runtime_train_case(dev, name, n_demos, os.path.join(out_dir, "runtime"))
+    during = counters()
+    summary["captured_training_launches"] = during
+    log(f"10f: launches while training eagerly and captured {during}")
+    if sum(during.values()) != 0:
+        raise SmokeFailure("10f: a kernel launched during training")
     return summary
+
+
+def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
+    """10f on one model: ``TRAIN_EAGER_RUNS`` eager epochs and one through
+    the runtime (``use_runtime``), each from the shipped checkpoint with
+    generator seed 0 and the same demo order; the captured epoch's losses,
+    parameters, EMA and optimizer state held to the eager runs
+    (``spread_gate``), every step count the steps taken, a second captured
+    epoch with no new entry; ms a step, device busy, idle share, kernels a
+    step, capture seconds and the graph pool."""
+    import torch
+
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer
+
+    t_case = time.perf_counter()
+    demos = make_synthetic_dataset(n_demos=n_demos, seed=0)
+    runs, start = [], None
+    for i in range(TRAIN_EAGER_RUNS + 1):
+        captured = i == TRAIN_EAGER_RUNS
+        tr = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(out_dir, f"{name}_{i}"),
+                                 device=dev, seed=0, use_runtime=captured)
+        tr.init(demos, checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
+        if start is None:
+            start = dict(params=[p.detach().clone() for p in tr.params], ema=[e.clone() for e in tr.ema])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch()  # its statistics are read at its end: synchronised
+        rec = dict(epoch_s=time.perf_counter() - t0)
+        with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
+            rec["state"] = dict(loss=[json.loads(line)["loss/train"] for line in f],
+                                params=[p.detach().clone() for p in tr.params],
+                                ema=[e.clone() for e in tr.ema],
+                                opt=[t.clone() for t in tr.optimizer.state_tensors()[1:]])
+        rec["count"] = int(tr.optimizer.count)
+        if captured:
+            entries = tr.cache_size()
+            t0 = time.perf_counter()
+            tr.train_epoch()
+            rec.update(replay_epoch_s=time.perf_counter() - t0, entries=entries, entries_after=tr.cache_size(),
+                       capture_s=tr.capture_s(), pool_gb=tr.pool_bytes() / 1e9)
+        if captured or i == TRAIN_EAGER_RUNS - 1:
+            rec["busy_ms"], rec["kernels"] = train_profile(trainer_step(tr), steps=2)
+        runs.append(rec)
+        del tr
+        torch.cuda.empty_cache()
+    eager, cap = runs[:-1], runs[-1]
+    gate = spread_gate(f"10f: {name}, {n_demos} steps", [r["state"] for r in eager], cap["state"],
+                       train_floor(eager[0]["state"], start))
+    ms_eager = float(np.median([r["epoch_s"] for r in eager])) / n_demos * 1e3
+    ms_cap = cap["replay_epoch_s"] / n_demos * 1e3
+    busy_e = eager[-1]["busy_ms"]
+    out = dict(steps=n_demos, eager_ms=ms_eager, captured_ms=ms_cap, capturing_epoch_ms=cap["epoch_s"] / n_demos * 1e3,
+               eager_busy_ms=busy_e, captured_busy_ms=cap["busy_ms"], eager_idle=1 - busy_e / ms_eager,
+               captured_idle=1 - cap["busy_ms"] / ms_cap, eager_kernels=eager[-1]["kernels"],
+               captured_kernels=cap["kernels"], capture_s=cap["capture_s"], pool_gb=cap["pool_gb"],
+               entries=cap["entries"], **gate)
+    log(f"10f: {name} ({n_demos} demos, one epoch): eager {ms_eager:.1f} ms a step (median of {TRAIN_EAGER_RUNS} "
+        f"epochs), busy {busy_e:.2f}, idle {out['eager_idle']:.3f}, {eager[-1]['kernels']:.0f} kernels; captured "
+        f"{ms_cap:.1f} ms (the replayed epoch; capturing epoch {out['capturing_epoch_ms']:.1f}), busy "
+        f"{cap['busy_ms']:.2f}, idle {out['captured_idle']:.3f}, {cap['kernels']:.0f} kernels; capture "
+        f"{cap['capture_s']:.2f} s, graph pool {cap['pool_gb']:.2f} GB; entries {cap['entries']}, after a second "
+        f"epoch {cap['entries_after']}; {time.perf_counter() - t_case:.1f} s")
+    if cap["entries_after"] != cap["entries"] or cap["entries"] != 1:
+        raise SmokeFailure(f"10f: {name}: the second epoch made a new entry, or the demos made more than one")
+    if [r["count"] for r in runs] != [n_demos] * len(runs):
+        raise SmokeFailure(f"10f: {name}: the optimizer's step counts are not the steps taken")
+    return out
 
 
 def model_attentions(model) -> int:
@@ -1556,6 +1721,7 @@ TOOLS_DIR = os.path.join(ROOT, "build", "smoke_tools")
 PICK_SWEEP = os.path.join(ROOT, "reports", "schedule_sweep_pick_r2.json")
 DUMP_DEMO_SEEDS, DUMP_SEEDS = dict(train=0, eval=500), 16  # 14a: one training and one held-out demo
 CRITIC_FT_STEPS = 3
+CRITIC_FT_RUNS = 3  # two eager (their difference is the spread) and one through the tool's compiled step
 SWEEP_CANDIDATES, SWEEP_SEEDS = ("reference", "low_floor"), 4
 DUMP_DTYPES = dict(scene_x="float32", scene_f="float32", scene_mask="bool", grasp_x="float32", grasp_f="float32",
                    grasp_mask="bool", samples="float32", trans_err="float32", rot_err_deg="float32",
@@ -1623,6 +1789,7 @@ def critic_phase(dev, dumps) -> dict:
     float16 export."""
     import torch
 
+    from diffusion_edf_tpu_torch.graphs import pool_bytes
     from diffusion_edf_tpu_torch.tools import train_critic_cascade as tcc
     from diffusion_edf_tpu_torch.train.ranking import RankConfig
     from diffusion_edf_tpu_torch.weights import load_params_npz
@@ -1658,25 +1825,49 @@ def critic_phase(dev, dumps) -> dict:
             per_demo, 0, per_demo, 0, 0):
         raise SmokeFailure("14b: the critic's energies did not run through the expected kernels")
 
-    # fine-tune steps, dropout on: the plain path (the kernels have no backward), no launch
+    # fine-tune steps, dropout on: the plain path (the kernels have no backward), no launch; eager twice (their
+    # spread) and through the tool's compiled step, from the same weights and generator seed
     rank_cfg = RankConfig.from_dict(train_cfg.get("critic_rank_configs", {}) or {})
-    opt = tcc.make_optimizer(list(model.parameters()), 1e-4, CRITIC_FT_STEPS)
-    step = tcc.make_train_step(model, tr, RankConfig(n_negatives=16), rank_cfg, opt,
-                               torch.Generator(device=dev).manual_seed(0))
+    del model
     reset_counters()
-    ms, losses = [], []
-    for _ in range(CRITIC_FT_STEPS):
-        t0 = time.perf_counter()
-        stats = step(0)
-        losses.append(float(stats["loss"].detach()))
-        ms.append((time.perf_counter() - t0) * 1e3)
+    runs = []
+    for i in range(CRITIC_FT_RUNS):
+        captured = i == CRITIC_FT_RUNS - 1
+        model = tcc.build_critic(cfg_dir, dev, ckpt)[0]
+        if i == 0:
+            start = dict(params=[p.detach().clone() for p in model.parameters()])
+        opt = tcc.make_optimizer(list(model.parameters()), 1e-4, CRITIC_FT_STEPS)
+        step = tcc.make_train_step(model, tr, RankConfig(n_negatives=16), rank_cfg, opt,
+                                   torch.Generator(device=dev).manual_seed(0), use_runtime=captured)
+        ms, losses = [], []
+        for _ in range(CRITIC_FT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(0)["loss"]))  # a read of the statistics: synchronised
+            ms.append((time.perf_counter() - t0) * 1e3)
+        params = [p.detach().clone() for p in model.parameters()]
+        rec = dict(ms=ms, losses=losses, state=dict(loss=losses, params=params,
+                                                    opt=[t.clone() for t in opt.state_tensors()[1:]]))
+        if captured or i == CRITIC_FT_RUNS - 2:
+            rec["busy_ms"], rec["kernels"] = train_profile(lambda _: step(0), steps=2)
+        if captured:
+            rec.update(capture_s=step.program.capture_s, pool_gb=pool_bytes(step.pool) / 1e9)
+        runs.append(rec)
+        del model, opt, step
+        torch.cuda.empty_cache()
     train_launches = counters()
-    model.eval()
-    log(f"14b: {CRITIC_FT_STEPS} fine-tune steps (16 fan + {DUMP_SEEDS} cascade samples, dropout on): losses "
-        f"{[round(v, 5) for v in losses]}, ms a step {[round(v, 1) for v in ms]}; launches {train_launches}")
+    eager, cap = runs[:-1], runs[-1]
+    ms, losses = cap["ms"], cap["losses"]
+    ms_e, ms_c = float(np.median([m for r in eager for m in r["ms"]])), float(np.median(ms[1:]))
+    log(f"14b: {CRITIC_FT_STEPS} fine-tune steps (16 fan + {DUMP_SEEDS} cascade samples, dropout on), captured: "
+        f"losses {[round(v, 5) for v in losses]}, ms a step {[round(v, 1) for v in ms]} (the first captures; eager "
+        f"{ms_e:.1f} median), busy {cap['busy_ms']:.2f} ms (eager {eager[-1]['busy_ms']:.2f}), idle "
+        f"{1 - cap['busy_ms'] / ms_c:.3f} (eager {1 - eager[-1]['busy_ms'] / ms_e:.3f}), kernels {cap['kernels']:.0f} "
+        f"(eager {eager[-1]['kernels']:.0f}), capture {cap['capture_s']:.2f} s, graph pool {cap['pool_gb']:.2f} GB; "
+        f"launches {train_launches}")
+    gate = spread_gate("14b: the fine-tune steps", [r["state"] for r in eager], cap["state"],
+                       train_floor(eager[0]["state"], start))
     if not np.isfinite(losses).all() or sum(train_launches.values()):
         raise SmokeFailure("14b: a fine-tune step is not finite or launched a kernel")
-    del model, opt
 
     # the tool's main: one epoch on the one-demo train dump; evaluations at epoch 0, 1 and on the best
     report_path, export = os.path.join(TOOLS_DIR, "critic_cascade_pick.json"), os.path.join(TOOLS_DIR, "critic.npz")
@@ -1703,7 +1894,9 @@ def critic_phase(dev, dumps) -> dict:
         raise SmokeFailure("14b: the critic export or its evaluations are not as the JAX tool's")
     return dict(rel_energy_err={k: v / scale for k, v in errs.items()}, energy_launches=launched,
                 step_ms=ms, losses=losses, main_s=main_s, main_launches=main_launches,
-                epoch0=report["epochs"][0])
+                epoch0=report["epochs"][0], eager_ms=ms_e, captured_ms=ms_c, eager_busy_ms=eager[-1]["busy_ms"],
+                captured_busy_ms=cap["busy_ms"], eager_kernels=eager[-1]["kernels"], captured_kernels=cap["kernels"],
+                capture_s=cap["capture_s"], pool_gb=cap["pool_gb"], **gate)
 
 
 def sweep_phase(dev, bundles) -> dict:

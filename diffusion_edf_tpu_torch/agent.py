@@ -43,7 +43,7 @@ import torch
 from .data import FeaturedPoints, stack_points
 from .diffusion.langevin import (N_COLUMNS, LangevinSchedule, build_schedule, draws_noise, langevin_sample,
                                  langevin_step, schedule_table)
-from .graphs import Program, copy_into
+from .graphs import Program, copy_into, pool_bytes
 from .nn import cuda_build
 from .parallel.mesh import Mesh
 from .parallel.sharded import sharded_langevin_sample
@@ -209,10 +209,7 @@ class _BundleRuntime:
 
     def pool_bytes(self) -> Optional[int]:
         """Device memory of the runtime's graph pool (None on the CPU)."""
-        if self.pool is None:
-            return None
-        segments = torch.cuda.memory_snapshot()
-        return sum(s["total_size"] for s in segments if tuple(s.get("segment_pool_id", ())) == tuple(self.pool))
+        return pool_bytes(self.pool)
 
     def _extraction(self, name: str, clouds: List[FeaturedPoints], fn) -> Any:
         key = (len(clouds), clouds[0].n)

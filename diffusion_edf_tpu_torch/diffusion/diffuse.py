@@ -115,6 +115,17 @@ def _scene_in_grasp_frame(T_init: torch.Tensor, scene_x: torch.Tensor) -> torch.
     return so3.quaternion_apply(T_inv[None, :4], scene_x) + T_inv[None, 4:]
 
 
+def _draw_indices(w: torch.Tensor, n: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``n`` indices drawn with replacement with the weights ``w``, as
+    ``torch.multinomial`` draws them.  For one sample that function takes an
+    exponential race behind a check that reads ``w`` on the host; the race
+    is written out here without the check, so a CUDA graph can capture it."""
+    if n == 1:
+        q = torch.empty_like(w).exponential_(1.0, generator=generator)
+        return torch.argmax(w / q, dim=-1, keepdim=True)
+    return torch.multinomial(w, n, replacement=True, generator=generator)
+
+
 def biequiv_draws(
     T_init: torch.Tensor,  # (1, 7)
     scene_points: FeaturedPoints,
@@ -129,7 +140,7 @@ def biequiv_draws(
     ``T_init^-1``), and the perturbations of ``igso3.se3_gaussian_draws``."""
     w, _ = reference_point_weights(_scene_in_grasp_frame(T_init, scene_points.x), grasp_points.x,
                                    contact_radius, scene_points.mask, grasp_points.mask)
-    draws = dict(ref_idx=torch.multinomial(w, n_samples_x_ref, replacement=True, generator=generator))
+    draws = dict(ref_idx=_draw_indices(w, n_samples_x_ref, generator))
     draws.update(igso3.se3_gaussian_draws(n_samples_x_ref * T_init.shape[0], generator, T_init.dtype,
                                           T_init.device))
     return draws
@@ -139,7 +150,8 @@ def biequiv_diffusion_given(T_init: torch.Tensor, time: Union[float, torch.Tenso
                             draws: Dict[str, torch.Tensor], ang_mult: float, lin_mult: float, lmax: int = 100):
     """The diffusion of ``T_init`` about the drawn contact points (see
     :func:`diffuse_T_target_given` for what it returns)."""
-    time = torch.as_tensor(time, dtype=T_init.dtype, device=T_init.device)
+    time = (time.to(device=T_init.device, dtype=T_init.dtype) if isinstance(time, torch.Tensor)
+            else torch.full((), float(time), dtype=T_init.dtype, device=T_init.device))  # a fill: no host copy
     return diffuse_T_target_given(T_init, grasp_points.x[draws["ref_idx"]], time, draws,
                                   lin_mult=lin_mult, ang_mult=ang_mult, lmax=lmax)
 

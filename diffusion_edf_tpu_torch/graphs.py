@@ -1,6 +1,6 @@
-"""Per-shape programs of the sampling path: captured once as CUDA graphs on
-the card, run eagerly on the CPU (the counterpart of the executables that
-``jax.jit`` compiles per input shape).
+"""Per-shape programs of the sampling and training paths: captured once as
+CUDA graphs on the card, run eagerly on the CPU (the counterpart of the
+executables that ``jax.jit`` compiles per input shape).
 
 A :class:`Program` wraps ``fn()``, a function that reads and writes tensors
 it closes over (static buffers) and may return more tensors (its static
@@ -16,6 +16,16 @@ eagerly and copies its outputs into the first call's, so the CPU runs the
 code that the card captures.  A capture that fails raises; nothing carries
 on eagerly.
 
+Random draws inside ``fn`` come from ``torch.Generator``s registered with
+the graph (``generators``): a replay then draws what an eager call from the
+generator's state would draw, and advances the generator as that call
+would, so ``get_state`` / ``set_state`` keep working across replays.  A
+replay writes its tensors without moving their version counters; the
+tensors that ``fn`` writes in place and that outlive it (``writes``:
+parameters, optimizer state) have their counters bumped after every replay
+(no launch), so every cache keyed by a version (``nn/util.py::cached``,
+the agent's runtime) sees the write.
+
 The hand-written kernels count their launches in Python globals
 (``nn/edge_kernel.py``: ``launches``, ``launches_bf16``;
 ``nn/fused_attention.py``: ``launches``), which a capture bumps without
@@ -29,14 +39,14 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .nn import edge_kernel as _ek
 from .nn import fused_attention as _fa
 
-__all__ = ["Program", "launch_counts", "add_launches", "tensors_of", "copy_into"]
+__all__ = ["Program", "launch_counts", "add_launches", "tensors_of", "copy_into", "pool_bytes"]
 
 _SIDE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
@@ -79,6 +89,14 @@ def copy_into(dst: Any, src: Any) -> None:
             x.copy_(y)
 
 
+def pool_bytes(pool: Optional[tuple]) -> Optional[int]:
+    """Device memory held by the graph pool ``pool`` (None on the CPU)."""
+    if pool is None:
+        return None
+    segments = torch.cuda.memory_snapshot()
+    return sum(s["total_size"] for s in segments if tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
     s = _SIDE_STREAMS.get(device)
     if s is None:
@@ -90,11 +108,14 @@ class Program:
     """``fn`` run once now and captured on CUDA (see the module docstring);
     call it to run it again.  ``out`` holds the static outputs, ``delta``
     the kernel launches of one run, ``capture_s`` the seconds of the capture
-    (0 on the CPU)."""
+    (0 on the CPU).  ``generators``: those that ``fn`` draws from;
+    ``writes``: the tensors whose version counters a replay bumps."""
 
-    def __init__(self, fn: Callable[[], Any], device: torch.device, pool: Optional[tuple] = None):
+    def __init__(self, fn: Callable[[], Any], device: torch.device, pool: Optional[tuple] = None,
+                 generators: Sequence[torch.Generator] = (), writes: Sequence[torch.Tensor] = ()):
         self.fn = fn
         self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.writes = list(writes)
         self.capture_s = 0.0
         if device.type != "cuda":
             before = launch_counts()
@@ -108,6 +129,8 @@ class Program:
         main.wait_stream(side)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
         warm = launch_counts()
         # no garbage collection while capturing: freeing another graph then (a destroyed runtime's, say) is an
         # operation a capture forbids, and it invalidates the capture
@@ -131,4 +154,6 @@ class Program:
         else:
             self.graph.replay()
             add_launches(self.delta)
+            if self.writes:
+                torch.autograd.graph.increment_version(self.writes)
         return self.out

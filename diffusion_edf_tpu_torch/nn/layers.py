@@ -274,7 +274,8 @@ def drop_irreps(f: torch.Tensor, keep: torch.Tensor, irreps: Irreps, rate: float
     num_irreps) drops zeroed and the rest scaled by ``1 / (1 - rate)``."""
     reps = constant(("irrep_dims", irreps), lambda: [ir.dim for mul, ir in irreps for _ in range(mul)], f,
                     dtype=torch.long)
-    return f * torch.repeat_interleave(keep.to(f.dtype), reps, dim=-1) / (1.0 - rate)
+    # output_size: the sum of reps, known here, so that the op reads nothing back from the device
+    return f * torch.repeat_interleave(keep.to(f.dtype), reps, dim=-1, output_size=irreps.dim) / (1.0 - rate)
 
 
 class EquivariantDropout(nn.Module):

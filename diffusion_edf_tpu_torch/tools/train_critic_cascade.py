@@ -10,7 +10,12 @@ gross failures keep a high energy, and minimises ``0.5 * rank_loss(all) +
 clipping at 1.0 and AMSGrad with a cosine decay to 0.1 lr over
 ``max_epochs * D`` steps.  The steps run the plain attention path (the CUDA
 kernels have no backward); the held-out evaluation runs under ``no_grad``
-on the model's ``edge_impl`` (the edge kernel on CUDA).  The best epoch, by
+on the model's ``edge_impl`` (the edge kernel on CUDA).  Each dump is staged
+on the device once, stacked as the JAX tool stacks it, and a demo is picked
+by a device index; the train step (fan, dropout, loss, backward, AMSGrad)
+and the held-out energies are each one ``graphs.Program`` a dump shape, the
+counterparts of the JAX tool's jitted epoch and ``eval_energy``: captured
+as CUDA graphs on the card and replayed, run eagerly on the CPU.  The best epoch, by
 held-out executed success minus 0.01 mean regret, is reported with the
 noise-floor probe and exported as float16::
 
@@ -35,10 +40,11 @@ import numpy as np
 import torch
 
 from ..data import FeaturedPoints, stack_points
+from ..graphs import Program
 from ..train.ranking import RankConfig, rank_loss, sample_ranked_poses
 
-__all__ = ["load_dump", "noise_floor_probe", "dump_clouds", "build_critic", "energies", "step_loss",
-           "make_optimizer", "make_train_step", "run_eval", "export_float16", "main"]
+__all__ = ["load_dump", "noise_floor_probe", "dump_clouds", "stage_dump", "build_critic", "energies", "step_loss",
+           "make_optimizer", "TrainStep", "make_train_step", "run_eval", "export_float16", "main"]
 
 
 def load_dump(path: str) -> Dict[str, np.ndarray]:
@@ -81,6 +87,21 @@ def dump_clouds(d: Dict[str, np.ndarray], i: int, device) -> Tuple[FeaturedPoint
     def fp(name):
         return FeaturedPoints(*(torch.as_tensor(d[f"{name}_{k}"][i], device=device) for k in ("x", "f", "mask")))
     return fp("scene"), fp("grasp")
+
+
+def stage_dump(d: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """The arrays a step or an evaluation reads (clouds, samples, badness,
+    target), stacked over the dump's demos, on ``device``."""
+    names = [f"{c}_{k}" for c in ("scene", "grasp") for k in ("x", "f", "mask")] + ["samples", "badness", "target"]
+    return {k: torch.as_tensor(d[k], device=device) for k in names}
+
+
+def _demo(staged: Dict[str, torch.Tensor], idx: torch.Tensor):
+    """Demo ``idx`` ((1,) long, on the device) of a staged dump: (scene,
+    grasp, samples, badness, target), indexed on the device."""
+    row = {k: v.index_select(0, idx)[0] for k, v in staged.items()}
+    scene, grasp = (FeaturedPoints(*(row[f"{c}_{k}"] for k in ("x", "f", "mask"))) for c in ("scene", "grasp"))
+    return scene, grasp, row["samples"], row["badness"], row["target"]
 
 
 def build_critic(configs_root_dir: str, device, init_params_npz: Optional[str] = None, seed: int = 0):
@@ -133,25 +154,63 @@ def make_optimizer(params, lr: float, total_steps: int):
                    total_steps=total_steps)
 
 
+class TrainStep:
+    """:func:`make_train_step`'s step: ``step(d)`` runs one update on demo
+    ``d`` and returns its statistics.  ``program`` is the compiled step
+    (None before the first call, and when stepping eagerly), ``pool`` its
+    graph pool (None on the CPU)."""
+
+    def __init__(self, update, keys: List[str], idx: torch.Tensor, written: List[torch.Tensor],
+                 generator: torch.Generator, use_runtime: bool):
+        # ``update`` closes over the model, the staged dump and the optimizer, not over this object: a
+        # program in a reference cycle would be freed by the garbage collector, at any time
+        self.update, self.keys, self.idx, self.written = update, keys, idx, written
+        self.generator, self.use_runtime = generator, use_runtime
+        self.device = idx.device
+        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.program: Optional[Program] = None
+        self._stamp = None
+
+    def __call__(self, d: int) -> Dict[str, torch.Tensor]:
+        self.idx.fill_(d)
+        if not self.use_runtime:
+            return dict(zip(self.keys, self.update().unbind()))
+        stamp = tuple(t.data_ptr() for t in self.written)  # a move to new storage makes the program anew
+        if stamp != self._stamp:
+            self.program = Program(self.update, self.device, self.pool, generators=[self.generator],
+                                   writes=self.written)
+            self._stamp = stamp
+            out = self.program.out
+        else:
+            out = self.program()
+        return dict(zip(self.keys, out.clone().unbind()))
+
+
 def make_train_step(model, dump: Dict[str, np.ndarray], fan_cfg: RankConfig, rank_cfg: RankConfig, opt,
-                    generator: torch.Generator):
+                    generator: torch.Generator, use_runtime: bool = True) -> TrainStep:
     """``step(d)``: one update on demo ``d`` of ``dump`` with dropout on (the
     model's dropout draws from ``generator``, as does the fan), returning
-    the step's statistics."""
+    the step's statistics.  The dump is staged on the device once; with
+    ``use_runtime`` the step is one ``graphs.Program`` (made at the first
+    step, made anew if the parameters or the optimizer state move to new
+    storage), else it runs eagerly: the reference."""
     params = list(model.parameters())
     device = params[0].device
     model.set_dropout_generator(generator)
+    staged = stage_dump(dump, device)
+    idx = torch.zeros(1, dtype=torch.long, device=device)
+    keys: List[str] = []
 
-    def step(d: int) -> Dict[str, torch.Tensor]:
-        scene, grasp = dump_clouds(dump, d, device)
-        fan_Ts, fan_bad = sample_ranked_poses(torch.as_tensor(dump["target"][d], device=device), fan_cfg, generator)
+    def update() -> torch.Tensor:
+        scene, grasp, samples, badness, target = _demo(staged, idx)
+        fan_Ts, fan_bad = sample_ranked_poses(target, fan_cfg, generator)
         model.train()
-        loss, stats = step_loss(model, scene, grasp, torch.as_tensor(dump["samples"][d], device=device),
-                                torch.as_tensor(dump["badness"][d], device=device), fan_Ts, fan_bad, rank_cfg)
+        loss, stats = step_loss(model, scene, grasp, samples, badness, fan_Ts, fan_bad, rank_cfg)
         opt.step(torch.autograd.grad(loss, params))
-        return stats
+        keys[:] = list(stats)
+        return torch.stack([stats[k].detach() for k in keys])
 
-    return step
+    return TrainStep(update, keys, idx, params + opt.state_tensors(), generator, use_runtime)
 
 
 @torch.no_grad()
@@ -167,12 +226,24 @@ def run_eval(model, ev: Dict[str, np.ndarray]) -> Tuple[Dict, List[np.ndarray]]:
     was = model.training
     model.eval()
     device = next(model.parameters()).device
+    staged = stage_dump(ev, device)
+    idx = torch.zeros(1, dtype=torch.long, device=device)
+
+    def energy():
+        scene, grasp, samples, _, _ = _demo(staged, idx)
+        return energies(model, samples, scene, grasp)
+
+    program = None  # the dump's one shape: one program, replayed for every demo after the first
     Ed, sp = [], []
     sel_succ, unranked_succ, best_succ, regret, gross_ok = [], [], [], [], []
     try:
         for d in range(ev["samples"].shape[0]):
-            scene, grasp = dump_clouds(ev, d, device)
-            e = energies(model, torch.as_tensor(ev["samples"][d], device=device), scene, grasp).cpu().numpy()
+            idx.fill_(d)
+            if program is None:
+                program = Program(energy, device)
+            else:
+                program()
+            e = program.out.cpu().numpy().copy()  # the static output is the next demo's
             b = ev["badness"][d]
             succ = (ev["trans_err"][d] <= 1.0) & (ev["rot_err_deg"][d] <= 5.0)
             i = int(np.argmin(e))

@@ -15,6 +15,7 @@ import torch
 
 from ..data import FeaturedPoints
 from ..geom import so3
+from ..nn.util import constant
 
 __all__ = ["AugmentConfig", "augment_draws", "augment_batch_given", "augment_batch"]
 
@@ -89,7 +90,7 @@ def augment_batch_given(scene: FeaturedPoints, grasp: FeaturedPoints, T_target: 
     :func:`augment_draws`.  The rotations turn each cloud about its masked
     centroid and the target transports exactly; with every knob off this is
     the identity."""
-    ident = scene.x.new_tensor([1.0, 0, 0, 0, 0, 0, 0])
+    ident = constant("identity_pose", lambda: [1.0, 0, 0, 0, 0, 0, 0], scene.x)
 
     def frame(name, pts):
         if name not in draws:

@@ -14,7 +14,13 @@ bias-corrected first moment by ``sqrt(nu_max) + eps``; ``torch.optim.Adam``
 with ``amsgrad=True`` takes the maximum of the uncorrected moment, and the
 two part in the first steps.  Parameters are updated in place under
 ``torch.no_grad()``, which bumps their version counters, so every cache of
-derived weights (``nn/util.py::cached``) is rebuilt at the next call."""
+derived weights (``nn/util.py::cached``) is rebuilt at the next call.
+
+The step count lives on the parameters' device (``count``, an int64
+scalar), and the learning rate and the bias corrections are computed from
+it there, in float64 and then float32: an update reads no host number that
+changes from step to step, so a CUDA graph that captures it applies the
+right rate at every replay (``train/trainer.py``)."""
 from __future__ import annotations
 
 import math
@@ -47,7 +53,7 @@ class Amsgrad:
         self.grad_clip_norm = float(grad_clip_norm) if grad_clip_norm else None
         self.decay_steps = int(total_steps) if (lr_min_factor is not None and total_steps) else None
         self.lr_min_factor = float(lr_min_factor) if lr_min_factor is not None else None
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64, device=self.params[0].device)  # updates so far
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.nu_max = [torch.zeros_like(p) for p in self.params]
@@ -57,12 +63,13 @@ class Amsgrad:
         keys = ("lr", "betas", "eps", "weight_decay", "grad_clip_norm", "lr_min_factor")
         return cls(params, total_steps=total_steps, **{k: opt_kwargs[k] for k in keys if k in opt_kwargs})
 
-    def lr_at(self, count: int) -> float:
-        """The learning rate of the update after ``count`` earlier updates."""
+    def lr_at(self, count: torch.Tensor) -> torch.Tensor:
+        """The learning rate (float64, on ``count``'s device) of the update
+        after ``count`` earlier updates."""
         if self.decay_steps is None:
-            return self.lr
-        c = min(count, self.decay_steps)
-        cosine = 0.5 * (1 + math.cos(math.pi * c / self.decay_steps))
+            return torch.full((), self.lr, dtype=torch.float64, device=count.device)
+        c = torch.clamp(count, max=self.decay_steps).to(torch.float64)
+        cosine = 0.5 * (1 + torch.cos(math.pi * c / self.decay_steps))
         return self.lr * ((1 - self.lr_min_factor) * cosine + self.lr_min_factor)
 
     @torch.no_grad()
@@ -77,9 +84,11 @@ class Amsgrad:
             grads = torch._foreach_mul(grads, factor)
         if self.weight_decay:
             grads = torch._foreach_add(grads, self.params, alpha=self.weight_decay)
-        lr = self.lr_at(self.count)
-        self.count += 1
-        bc1, bc2 = 1 - self.b1**self.count, 1 - self.b2**self.count
+        neg_lr = (-self.lr_at(self.count)).to(torch.float32)
+        self.count.add_(1)
+        n = self.count.to(torch.float64)
+        bc1 = (1 - torch.pow(self.b1, n)).to(torch.float32)
+        bc2 = (1 - torch.pow(self.b2, n)).to(torch.float32)
         torch._foreach_mul_(self.mu, self.b1)
         torch._foreach_add_(self.mu, grads, alpha=1 - self.b1)
         torch._foreach_mul_(self.nu, self.b2)
@@ -89,10 +98,15 @@ class Amsgrad:
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(update, denom)
-        torch._foreach_add_(self.params, update, alpha=-lr)
+        torch._foreach_mul_(update, neg_lr)
+        torch._foreach_add_(self.params, update)
 
     def state_arrays(self) -> Dict[str, List[torch.Tensor]]:
         return dict(mu=self.mu, nu=self.nu, nu_max=self.nu_max)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor an update writes besides the parameters."""
+        return [self.count, *self.mu, *self.nu, *self.nu_max]
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

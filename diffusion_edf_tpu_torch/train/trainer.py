@@ -20,6 +20,25 @@ attention runs its plain PyTorch path (the CUDA kernels have no backward;
 ``nn/attention.py``).  Float32 products stay float32 on the card: the
 trainer refuses to run with TF32 matmuls enabled.
 
+With ``use_runtime`` (the default) each step is one compiled program, the
+counterpart of the JAX trainer's jitted step and epoch: an entry a demo
+shape, orbit branch (``sym_on``) and ``edge_impl``, whose
+``graphs.Program`` is the whole step (draws, forward, backward, the
+optimizer and the EMA) over a static copy of the demo.  On CUDA its first
+call runs eagerly on a side stream and captures a CUDA graph in the
+trainer's graph pool; every later step copies its demo into the entry's
+buffers and replays the graph, drawing from the trainer's generator, which
+is registered with the graph (the same numbers as an eager step from the
+same state).  :meth:`train_epoch` gathers every step's statistics on the
+device and reads them once, as the JAX epoch's ``jax.device_get`` does.
+On the CPU the same entries run eagerly.  ``use_runtime=False`` runs every
+step eagerly: the reference the runtime is held to.  Entries are dropped
+when a parameter, the EMA or the optimizer state is moved to new storage
+(``.to()``, ``.double()``, a new ``init``); ``restore`` and
+``load_params_npz`` write in place and keep them.  A replay bumps the
+version counters of what it wrote, so the caches of derived weights and
+the agent's runtime entries over ``tr.model`` are rebuilt after it.
+
 Checkpoints are one ``.npz``: ``params/...`` and ``ema_params/...`` in the
 flat flax keys of ``weights.py``, ``opt_state/{mu,nu,nu_max}/...`` and
 ``opt_state/count``, ``__rng__`` (the generator's state) and ``__meta__``
@@ -27,13 +46,16 @@ flat flax keys of ``weights.py``, ``opt_state/{mu,nu,nu_max}/...`` and
 parameters alone in the layout of the shipped ``checkpoints/**/*.npz``.
 
 Given a mesh, :meth:`DiffusionEdfTrainer.step` is data parallel over one
-of its axes (``parallel/sharded.py::make_sharded_train_step``)."""
+of its axes (``parallel/sharded.py::make_sharded_train_step``); that step
+runs eagerly (gloo's collectives cannot be captured)."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
 import os
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -44,6 +66,7 @@ import yaml
 from ..data import FeaturedPoints, stack_points
 from ..diffusion.diffuse import biequiv_diffusion, random_time
 from ..geom import so3
+from ..graphs import Program, copy_into, pool_bytes, tensors_of
 from ..models.score_model import train_loss
 from ..parallel.mesh import Mesh, gather_batch, shard_batch
 from ..weights import flat_arrays, init_params, load_params_npz, unflatten_arrays
@@ -116,6 +139,20 @@ class StepInputs:
         return StepInputs(**{f.name: field(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
 
+@dataclasses.dataclass
+class _StepEntry:
+    """A compiled train step: the demo it reads (static), its program, and
+    the names of the statistics its output stacks."""
+
+    batch: DemoBatch
+    program: Program
+    keys: List[str]
+
+
+def _demo_tensors(batch: DemoBatch) -> list:
+    return [batch.scene, batch.grasp, batch.T, batch.sym_center]
+
+
 class DiffusionEdfTrainer:
     """Trainer of one task variant::
 
@@ -126,7 +163,8 @@ class DiffusionEdfTrainer:
         tr.save(); tr.export("pick_lowres.npz")
 
     ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; there is
-    no fallback when CUDA is missing."""
+    no fallback when CUDA is missing, nor when a capture fails.
+    ``use_runtime=False`` steps eagerly (see the module docstring)."""
 
     def __init__(
         self,
@@ -138,6 +176,7 @@ class DiffusionEdfTrainer:
         n_grasp_pad: int = 512,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
+        use_runtime: bool = True,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -186,6 +225,11 @@ class DiffusionEdfTrainer:
         self.steps = 0
         self.epoch = 0
         self.batches: List[DemoBatch] = []
+        self.use_runtime = use_runtime
+        self._attentions = [m for m in self.model.modules() if hasattr(m, "edge_impl")]
+        self._entries: Dict[tuple, _StepEntry] = {}
+        self._stamp = None
+        self.pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------------ #
     def prepare_batches(self, demos: Sequence[DemoSequence]) -> None:
@@ -306,18 +350,80 @@ class DiffusionEdfTrainer:
             grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
         return loss, stats, grads
 
-    def step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, float]:
-        """One training step on ``batch`` (dropout on); its statistics.  With
-        ``mesh``, data parallel over the ``"data"`` axis
-        (``make_sharded_train_step``)."""
-        assert self.optimizer is not None, "call init() first"
+    def update(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+        """One training step on ``batch`` (dropout on), eagerly: the draws,
+        the loss and its gradient, the update; the step's statistics on the
+        device."""
         inputs = self.draw_step(batch)
         self.model.train()
         _, stats, grads = self.loss_and_grads(inputs, mesh)
         stats["grad_norm"] = global_norm(grads)
         self.apply_grads(grads)
-        keys = list(stats)
-        return dict(zip(keys, torch.stack([stats[k].detach().float() for k in keys]).tolist()))
+        return stats
+
+    def step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, float]:
+        """One training step on ``batch`` (dropout on); its statistics.  With
+        ``mesh``, data parallel over the ``"data"`` axis
+        (``make_sharded_train_step``), eagerly."""
+        keys, out = self._step(batch, mesh)
+        return dict(zip(keys, out.tolist()))
+
+    def _step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Tuple[List[str], torch.Tensor]:
+        """One step through the runtime (or eagerly, without it or with
+        ``mesh``): the statistics' names and their values stacked on the
+        device (the entry's static output when replayed)."""
+        assert self.optimizer is not None, "call init() first"
+        if mesh is not None or not self.use_runtime:
+            stats = self.update(batch, mesh)
+            keys = list(stats)
+            return keys, _stacked(stats, keys)
+        self._check()
+        key = (tuple(t.shape for t in tensors_of(_demo_tensors(batch))), batch.sym_on,
+               tuple(m.edge_impl for m in self._attentions))
+        entry = self._entries.get(key)
+        if entry is not None:
+            copy_into(_demo_tensors(entry.batch), _demo_tensors(batch))
+            return entry.keys, entry.program()
+        static = copy.deepcopy(batch)
+        keys: List[str] = []
+        trainer = weakref.ref(self)  # the step must not hold the trainer: an entry in a cycle outlives it
+
+        def fn():
+            stats = trainer().update(static)
+            keys[:] = list(stats)
+            return _stacked(stats, keys)
+
+        drawing = [self.generator] + [m.dropout_generator for m in self.model.modules()
+                                      if getattr(m, "dropout_generator", None) is not None]
+        generators = list({id(g): g for g in drawing}.values())
+        program = Program(fn, self.device, self.pool, generators=generators, writes=self._written())
+        self._entries[key] = _StepEntry(static, program, keys)
+        return keys, program.out
+
+    def _written(self) -> List[torch.Tensor]:
+        """Every tensor a step writes in place: the parameters, the EMA and
+        the optimizer's state."""
+        return [*self.params, *self.ema, *self.optimizer.state_tensors()]
+
+    def _check(self) -> None:
+        """Drop every entry when a tensor that the steps write was moved to
+        new storage: a graph writes the storage that it saw."""
+        stamp = tuple(t.data_ptr() for t in self._written())
+        if stamp != self._stamp:
+            self._entries = {}
+            self._stamp = stamp
+
+    def cache_size(self) -> int:
+        """The number of compiled steps (entries) held."""
+        return len(self._entries)
+
+    def capture_s(self) -> float:
+        """Seconds spent capturing the entries held now (0 on the CPU)."""
+        return sum(e.program.capture_s for e in self._entries.values())
+
+    def pool_bytes(self) -> Optional[int]:
+        """Device memory of the trainer's graph pool (None on the CPU)."""
+        return pool_bytes(self.pool)
 
     def apply_grads(self, grads: List[torch.Tensor]) -> None:
         """The update of one step: the optimizer's step on ``grads``, then the
@@ -343,15 +449,24 @@ class DiffusionEdfTrainer:
 
     def train_epoch(self, shuffle: bool = True) -> Dict[str, float]:
         """One step on every demo, in an order shuffled by
-        ``np.random.default_rng(epoch)``; every step's statistics go to the
-        log.  Returns the last step's."""
+        ``np.random.default_rng(epoch)``.  The steps' statistics are copied
+        into one device buffer and read once, at the epoch's end (the JAX
+        epoch's ``jax.device_get``); each then goes to the log.  Returns the
+        last step's."""
         assert self.optimizer is not None, "call init() first"
         order = np.arange(len(self.batches))
         if shuffle:
             np.random.default_rng(self.epoch).shuffle(order)
+        names, rows = [], None
+        for j, i in enumerate(order):
+            keys, out = self._step(self.batches[i])
+            if rows is None:
+                rows = out.new_empty(len(order), out.numel())
+            rows[j].copy_(out)
+            names.append(keys)
         last: Dict[str, float] = {}
-        for i in order:
-            last = self.step(self.batches[i])
+        for keys, row in zip(names, rows.tolist() if rows is not None else []):
+            last = dict(zip(keys, row))
             self.steps += 1
             self.logger.log(step=self.steps, **last)
         self.epoch += 1
@@ -377,7 +492,7 @@ class DiffusionEdfTrainer:
         for name, tensors in self.optimizer.state_arrays().items():
             out.update({f"opt_state/{name}/" + k[len("params/"):]: v
                         for k, v in flat_arrays(self.model, tensors).items()})
-        out["opt_state/count"] = np.asarray(self.optimizer.count, np.int64)
+        out["opt_state/count"] = np.asarray(int(self.optimizer.count), np.int64)
         out["__rng__"] = self.generator.get_state().numpy()
         out["__meta__"] = _json_bytes(dict(epoch=self.epoch, steps=self.steps))
         return out
@@ -410,7 +525,7 @@ class DiffusionEdfTrainer:
             for name, tensors in self.optimizer.state_arrays().items():
                 for t, a in zip(tensors, arrays(f"opt_state/{name}/")):
                     t.copy_(torch.as_tensor(a))
-        self.optimizer.count = int(flat["opt_state/count"])
+            self.optimizer.count.fill_(int(flat["opt_state/count"]))
         self.generator.set_state(torch.as_tensor(flat["__rng__"]))
         meta = json.loads(bytes(flat["__meta__"]).decode())
         self.epoch, self.steps = int(meta["epoch"]), int(meta["steps"])
@@ -425,6 +540,10 @@ class DiffusionEdfTrainer:
         with open(path, "wb") as f:
             np.savez_compressed(f, **flat_arrays(self.model), __meta__=_json_bytes(meta))
         return path
+
+
+def _stacked(stats: Dict[str, torch.Tensor], keys: List[str]) -> torch.Tensor:
+    return torch.stack([stats[k].detach().float() for k in keys])
 
 
 def _json_bytes(obj) -> np.ndarray:

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the edge kernel in float32, unmasked and at
 masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
 attention kernel) against their plain PyTorch versions on the card, and
-their refusal of autograd (they have no backward).  This
+their refusal of autograd (they have no backward); the agent's and the
+trainer's captured CUDA graphs against their eager runs.  This
 file imports neither jax nor the JAX package, so it runs on a GPU machine
 without them:
 
@@ -477,3 +478,120 @@ def test_capture_meeting_a_host_sync_raises(tmp_path):
     torch.cuda.synchronize()
     assert expected > 0 and launch_counts()[0] - before[0] == expected
     assert torch.ones(1, device="cuda").sum().item() == 1.0  # the device still works
+
+
+# ---- the trainer's compiled step: captured CUDA graphs against eager steps ----
+
+def _tiny_trainer(tmp_path, ebm, use_runtime, label, lr=3e-4):
+    import copy
+
+    import yaml
+
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer
+
+    d = tmp_path / f"train_{ebm}_{lr}"
+    if not d.exists():
+        d.mkdir()
+        model = copy.deepcopy(TINY_MODEL)
+        mk = model["model_kwargs"]
+        mk["score_head_kwargs"]["key_tensor_field_kwargs"]["alpha_drop"] = 0.1
+        mk["key_kwargs"]["feature_extractor_kwargs"]["alpha_drop"] = 0.1
+        train = dict(model_config_file="score_model_configs.yaml", rescale_factor=100.0,
+                     preprocess_config=TINY_PREPROCESS, n_samples_x_ref=4, optimizer_kwargs=dict(lr=lr),
+                     diffusion_configs=dict(time_schedules=[[1.0, 0.15], [0.15, 0.01]]))
+        if ebm:  # as configs/panda_mug/pick_ebm, with fewer negatives
+            mk["score_head_kwargs"].update(ebm=True, edge_time_encoding=False)
+            train.update(critic_rank_configs=dict(weight=1.0, n_negatives=8),
+                         diffusion_configs=dict(time_schedules=[[0.03, 0.03]]))
+        task = dict(task_type="pick", contact_radius=0.02)
+        for name, c in (("train_configs.yaml", train), ("task_configs.yaml", task), ("score_model_configs.yaml", model)):
+            (d / name).write_text(yaml.safe_dump(c))
+    tr = DiffusionEdfTrainer(str(d), log_dir=str(tmp_path / f"log_{ebm}_{label}"), n_scene_pad=512, n_grasp_pad=160,
+                             device="cuda", use_runtime=use_runtime)
+    demos = (make_synthetic_dataset(n_demos=2, seed=0, n_scene=600, n_grasp=150)
+             + make_synthetic_dataset(n_demos=1, seed=0, family="bowl", n_scene=600, n_grasp=150))  # one orbit
+    tr.init(demos)
+    return tr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ebm", [False, True], ids=["score", "critic"])
+def test_captured_train_steps_equal_eager(tmp_path, ebm):
+    """Two epochs of three demos (one with an orbit), dropout on, through the
+    trainer's captured graphs (the trainer's generator registered with them)
+    against three eager runs, ``chip_smoke.py``'s 10f gate: the captured
+    run's losses (largest difference) and its parameters, EMA and optimizer
+    state (norm of the difference) no farther from the nearest eager run
+    than twice the eager runs' largest difference (the card's backward sums
+    in no fixed order) or 1e-4 of the largest loss and 1e-2 of the norm of
+    the state's change; the generator left in the eager state; two entries,
+    both captured, none new in epoch 2."""
+    _need_cuda()
+    import json
+
+    runs = []
+    for label, use_runtime in enumerate((False, False, False, True)):
+        tr = _tiny_trainer(tmp_path, ebm, use_runtime, label)
+        if label == 0:
+            start = torch.cat([t.detach().double().reshape(-1).cpu() for t in (*tr._written(), *tr.ema)])
+        tr.train_epoch()
+        entries = tr.cache_size()
+        tr.train_epoch()
+        if use_runtime:
+            assert entries == tr.cache_size() == 2
+            assert all(e.program.graph is not None for e in tr._entries.values())
+        with open(f"{tr.log_dir}/metrics.jsonl") as f:
+            losses = torch.tensor([json.loads(line)["loss/train"] for line in f], dtype=torch.float64)
+        state = torch.cat([t.detach().double().reshape(-1).cpu() for t in (*tr._written(), *tr.ema)])
+        runs.append((losses, state, tr.generator.get_state()))
+    *eager, captured = runs
+    floors = (1e-4 * float(eager[0][0].abs().max()), 1e-2 * float((eager[0][1] - start).norm()))
+    for i, diff in ((0, lambda a, b: float((a - b).abs().max())), (1, lambda a, b: float((a - b).norm()))):
+        spread = max(diff(a[i], b[i]) for j, a in enumerate(eager) for b in eager[j + 1:])
+        assert min(diff(captured[i], e[i]) for e in eager) <= max(2 * spread, floors[i])
+    assert torch.equal(captured[2], eager[0][2])
+    assert len(captured[0]) == 6 and torch.isfinite(captured[0]).all()
+
+
+@pytest.mark.cuda
+def test_replay_bumps_versions_and_caches_follow(tmp_path):
+    """A replayed step bumps the version counters of what it wrote (the
+    parameters, the EMA, the optimizer state) with no launch, so a no-grad
+    score on K1 after it, whose derived weights were cached before it,
+    equals a freshly loaded model's on the trained weights."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.data import stack_points
+    from diffusion_edf_tpu_torch.graphs import launch_counts
+    from diffusion_edf_tpu_torch.train.factory import build_score_model
+    from diffusion_edf_tpu_torch.weights import flat_arrays, load_flat_params
+
+    tr = _tiny_trainer(tmp_path, False, True, "bump", lr=1e-2)
+    b = tr.batches[0]
+    Ts = b.T.expand(3, 7).clone()
+    Ts[:, 4:] += torch.tensor([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, -2.0, 1.0]], device="cuda")
+    time = torch.tensor([[0.1, 0.4, 0.8]], device="cuda")
+
+    def score(model):
+        with torch.no_grad():
+            key_ms = [stack_points([p]) for p in model.get_key_pcd_multiscale(b.scene)]
+            return model.score(Ts[None], key_ms, stack_points([model.get_query_pcd(b.grasp)]), time)
+
+    tr.step(b)  # captures
+    tr.model.eval()
+    before = score(tr.model)  # caches the derived weights of these parameters
+    versions = [t._version for t in tr._written()]
+    launched = launch_counts()
+    for _ in range(3):
+        tr.step(b)  # replays
+    assert launch_counts() == launched
+    assert all(t._version > v for t, v in zip(tr._written(), versions))
+    tr.model.eval()
+    after = score(tr.model)
+    fresh = load_flat_params(build_score_model(tr.model_cfg["model_name"], tr.model_cfg["model_kwargs"]),
+                             flat_arrays(tr.model)).cuda().eval()
+    again = score(fresh)
+    for a, f, z in zip(after, again, before):
+        scale = float(f.abs().max())
+        torch.testing.assert_close(a, f, rtol=0, atol=1e-5 * scale)
+        assert float((a - z).abs().max()) > 1e-3 * scale

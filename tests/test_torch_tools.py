@@ -232,6 +232,36 @@ class ToolStub:
         return np.concatenate([q, x], -1)[None].astype(np.float32), d.scene_pcd, d.grasp_pcd, {}
 
 
+def test_critic_runtime_step_equals_eager(critic_files):
+    """The tool's step through its program (on the CPU run eagerly, over the
+    dump staged on the device and a device index) against its eager step,
+    from the same weights and generator seed, demos 1, 0, 1: the statistics,
+    the parameters and the optimizer state bit-equal; and ``run_eval``'s
+    energies, through its program, equal to ``energies`` demo by demo."""
+    files, _, _, rank_cfg = critic_files
+    tr = tcc.load_dump(files["train"])
+    runs = {}
+    for use_runtime in (False, True):
+        model, _ = tcc.build_critic(files["cfg"], "cpu", files["init"])
+        opt = tcc.make_optimizer(list(model.parameters()), 1e-3, 3)
+        step = tcc.make_train_step(model, tr, RankConfig(n_negatives=4), rank_cfg, opt,
+                                   torch.Generator().manual_seed(0), use_runtime=use_runtime)
+        runs[use_runtime] = model, opt, [step(d) for d in (1, 0, 1)]
+    (m_e, o_e, s_e), (m_r, o_r, s_r) = runs[False], runs[True]
+    assert [st.keys() for st in s_r] == [st.keys() for st in s_e] and len(s_r[0]) == 4
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(s_r, s_e) for k in a)
+    assert s_r[0]["loss"] != s_r[2]["loss"]  # the steps are not one replayed copy
+    for a, b in zip([*m_r.parameters(), *o_r.state_tensors()], [*m_e.parameters(), *o_e.state_tensors()]):
+        assert torch.equal(a, b)
+    ev = tcc.load_dump(files["eval"])
+    _, Ed = tcc.run_eval(m_r, ev)
+    m_r.eval()
+    for i, e in enumerate(Ed):
+        with torch.no_grad():
+            ref = tcc.energies(m_r, torch.as_tensor(ev["samples"][i]), *tcc.dump_clouds(ev, i, "cpu"))
+        np.testing.assert_array_equal(e, ref.numpy())
+
+
 def _install_stub(monkeypatch, pkg, demo_sets):
     """Patch ``pkg``'s agent module so that its tools build a ``ToolStub``
     over the processed targets of ``demo_sets``."""
