@@ -140,7 +140,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    max|score|;
 13. multi-device: two ranks (``multi_device_rank``, spawned) share the one
    card in a gloo process group (nccl refuses two ranks on one GPU; gloo
-   stages CUDA tensors through the host), the kernels built by phase 1:
+   stages CUDA tensors through the host), the kernels built by phase 1,
+   every path eager (``use_runtime=False``: a CUDA graph cannot hold a gloo
+   collective, and the runtime given the gloo mesh must raise, which the
+   phase checks for the agent, the scene-sharded score and the
+   data-parallel step):
    (a) the ``pick_lowres`` stage of phase 3 with ``DiffusionEdfAgent(mesh=)``,
    its 32 seeds sharded over the ranks, on ``kernel``: final poses within
    ``POSE_GATE`` of phase 3's one-process stage (the same seeds and noise),
@@ -158,6 +162,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    rank 0's parameters and EMA after each step equal to this process's
    update of those gradients (within the gradient gate of each key's
    largest change), the parameters equal on both ranks after the steps;
+   (d) one spawned process in a one-rank NCCL group
+   (``nccl_capture_rank``): ``reduce_from_shards``, ``all_reduce_max``,
+   ``gather_blocks``, the backward of ``copy_to_shards`` and the
+   data-parallel step's flat-gradient all-reduce on ``dist.group.WORLD``,
+   captured in one ``graphs.Program`` and replayed twice on new inputs,
+   exactly equal to the same calls eager (PyTorch's NCCL-under-capture
+   path on this card: streams, events, watchdog); the multi-rank captured
+   paths run on four cards (``tools/torch_multichip.py``);
 14. the model-building tools (``diffusion_edf_tpu_torch/tools/``, each
    through the function a user calls), on the default ``edge_impl``, in
    ``build/smoke_tools``: (a) ``gen_cascade_samples.main`` on the shipped
@@ -1520,8 +1532,17 @@ def multi_device_rank(rank: int, world: int, run_dir: str, device_type: str = "c
     bundle = load_model_bundle(CONFIG, CHECKPOINT, device=dev)
     scene, grasp = scene_clouds()
 
-    def agent():
-        return DiffusionEdfAgent([bundle], train_cfg["preprocess_config"], UNPROCESS, preprocess_seed=0, mesh=mesh)
+    def agent(use_runtime=False):  # gloo groups run eagerly: the reference path
+        return DiffusionEdfAgent([bundle], train_cfg["preprocess_config"], UNPROCESS, preprocess_seed=0, mesh=mesh,
+                                 use_runtime=use_runtime)
+
+    def refusal(fn):
+        """The message with which ``fn`` refuses the gloo mesh on CUDA (None if it ran)."""
+        try:
+            fn()
+        except RuntimeError as e:
+            return str(e)
+        return None
 
     agent().sample(scene, grasp, seed_poses(N_SEEDS)[:4], generator=gen(9), record_trajectory=False,
                    **dict(SCHEDULE, N_steps_list=[[1, 1]]))  # warm-up
@@ -1530,6 +1551,7 @@ def multi_device_rank(rank: int, world: int, run_dir: str, device_type: str = "c
                                                             **SCHEDULE))
     out["13a"] = dict(final=traj[-1], launches=counters(), steps=info["steps"][0], rollout_s=info["rollout_s"][0],
                       wall_s=wall)
+    out["refused"] = dict(agent=refusal(lambda: agent(use_runtime=True)))
 
     # ---- 13b: one score step, query rows and then the scene sharded, on kernel and plain ----
     mesh2 = make_mesh(axis_names=("data", "model"), shape=(1, world))
@@ -1538,7 +1560,10 @@ def multi_device_rank(rank: int, world: int, run_dir: str, device_type: str = "c
     for impl in ("kernel", "fused", "plain"):
         mq = sharded_model(model_cfg, dev, impl, query_shard_axes=["data", "model"])
         ms = sharded_model(model_cfg, dev, impl, scene_axis_name="model")
-        scene_fn = scene_sharded_score_fn(mesh2, ms, key_ms, query)
+        scene_fn = scene_sharded_score_fn(mesh2, ms, key_ms, query, use_runtime=False)
+        if impl == "kernel":
+            out["refused"]["scene_score"] = refusal(
+                lambda: scene_sharded_score_fn(mesh2, ms, key_ms, query)(T, time_vec))
         rec = {}
         with torch.no_grad():
             paths = [("query", lambda: mq.score(T, key_ms, query, time_vec))]
@@ -1565,10 +1590,14 @@ def multi_device_rank(rank: int, world: int, run_dir: str, device_type: str = "c
     demos = make_synthetic_dataset(n_demos=2, seed=0)
     for name, n_steps in (("pick_lowres", 3), ("pick_ebm", 1)):
         tr = DiffusionEdfTrainer(os.path.join(CONFIGS, name), log_dir=os.path.join(run_dir, f"{name}_{rank}"),
-                                 n_scene_pad=2048, n_grasp_pad=512, device=dev, seed=0)
+                                 n_scene_pad=2048, n_grasp_pad=512, device=dev, seed=0, use_runtime=False)
         tr.init(demos, checkpoint=os.path.join(CHECKPOINTS, f"{name}.npz"))
         dropout_off(tr.model)
         step = make_sharded_train_step(mesh, tr)
+        if name == "pick_lowres":  # the runtime's step refuses before it draws or runs anything
+            tr.use_runtime = True
+            out["refused"]["train_step"] = refusal(lambda: step(tr.batches[0]))
+            tr.use_runtime = False
         applied = []  # the gradients each step hands its update
         apply_grads = tr.apply_grads
         tr.apply_grads = lambda grads: (applied.append([g.detach().clone() for g in grads]), apply_grads(grads))
@@ -1713,7 +1742,90 @@ def multi_device_phase(dev, lowres_final: np.ndarray) -> dict:
                 and worst_update[0] <= grad_gate and same):
             raise SmokeFailure(f"13c: the data-parallel {name} step differs from one process's")
         del tr
+
+    # ---- the runtime refuses the gloo mesh on CUDA; 13d: NCCL collectives captured ----
+    refused = [r["refused"] for r in ranks]
+    summary["runtime_refuses_gloo"] = {k: all(x[k] is not None and "gloo" in x[k] for x in refused)
+                                       for k in refused[0]}
+    log(f"13: the runtime given the gloo mesh on {dev.type} (agent, scene-sharded score, data-parallel step) "
+        f"refuses on every rank: {summary['runtime_refuses_gloo']} ({refused[0]['agent']!r})")
+    if dev.type == "cuda" and not (len(summary["runtime_refuses_gloo"]) == 3
+                                   and all(summary["runtime_refuses_gloo"].values())):
+        raise SmokeFailure("13: the runtime ran over gloo groups on CUDA, which a CUDA graph cannot hold")
+    nccl = nccl_capture_phase(dev.type)
+    summary["nccl_capture"] = dict(equal=[r["equal"] for r in nccl["replays"]], capture_s=nccl["capture_s"],
+                                   torch=nccl["torch"], nccl=nccl["nccl"], s=nccl["s"])
     return summary
+
+
+def nccl_capture_rank(rank: int, run_dir: str, device_type: str = "cuda") -> None:
+    """Phase 13d's one process: a one-rank NCCL group on the card, and the
+    mesh's collectives and the data-parallel step's flat-gradient
+    all-reduce on ``dist.group.WORLD``, run eagerly and replayed from one
+    captured ``graphs.Program`` on two sets of inputs; saves both to
+    ``run_dir``.  (``device_type="cpu"``: gloo and an eager program, a
+    rehearsal on the host.)"""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_edf_tpu_torch.graphs import Program
+    from diffusion_edf_tpu_torch.parallel.mesh import (all_reduce_max, all_reduce_sum, copy_to_shards, gather_blocks,
+                                                       make_mesh, reduce_from_shards)
+
+    cuda = device_type == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{run_dir}/rendezvous", world_size=1,
+                            rank=rank)
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    group = dist.group.WORLD
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn(6, 5, 4, generator=g, device=dev)
+    w = torch.randn(5, 4, generator=g, device=dev)
+
+    def fn():
+        xr = x.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad((copy_to_shards(xr, group) * w).sum(), xr)  # its backward all-reduces
+        return [reduce_from_shards(x * 3.0, group), all_reduce_max(x - w, group), gather_blocks(x, group, 1),
+                grad] + all_reduce_sum([x, w], group)
+
+    program = Program(fn, dev, torch.cuda.graph_pool_handle() if cuda else None, mesh=make_mesh())
+    out = dict(torch=torch.__version__, nccl=".".join(map(str, torch.cuda.nccl.version())) if cuda else None,
+               backend=dist.get_backend(), capture_s=program.capture_s, replays=[])
+    for _ in range(2):  # new inputs in place, then eager against the replay
+        x.normal_(generator=g)
+        w.normal_(generator=g)
+        eager = [t.detach().clone() for t in fn()]
+        replay = [t.detach().clone() for t in program()]
+        out["replays"].append(dict(equal=all(torch.equal(a, b) for a, b in zip(eager, replay)),
+                                   max_abs=max(float((a - b).abs().max()) for a, b in zip(eager, replay)),
+                                   shapes=[tuple(t.shape) for t in replay]))
+    torch.save(out, os.path.join(run_dir, "13d.pt"))
+    dist.destroy_process_group()
+
+
+def nccl_capture_phase(device_type: str = "cuda") -> dict:
+    """Phase 13d (``nccl_capture_rank`` in a process of its own, so that this
+    one keeps no process group): collectives over NCCL captured in a CUDA
+    graph equal the same calls eager, exactly."""
+    import torch
+    import torch.multiprocessing as mp
+
+    run_dir = os.path.join(ROOT, "build", "nccl_capture")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    os.makedirs(run_dir)
+    t0 = time.perf_counter()
+    mp.spawn(nccl_capture_rank, args=(run_dir, device_type), nprocs=1, join=True)
+    res = torch.load(os.path.join(run_dir, "13d.pt"), weights_only=False)
+    res["s"] = time.perf_counter() - t0
+    log(f"13d: reduce_from_shards, all_reduce_max, gather_blocks, copy_to_shards' backward and the flat-gradient "
+        f"all-reduce on a one-rank {res['backend']} group (torch {res['torch']}, NCCL {res['nccl']}), captured in "
+        f"one graphs.Program ({res['capture_s']:.3f} s) and replayed twice on new inputs against the same calls "
+        f"eager: equal {[r['equal'] for r in res['replays']]}, max-abs {[r['max_abs'] for r in res['replays']]} "
+        f"(gate: exactly equal); {res['s']:.1f} s")
+    if not all(r["equal"] for r in res["replays"]):
+        raise SmokeFailure("13d: the captured NCCL collectives differ from eager")
+    return res
 
 
 # phase 14: the model-building tools (diffusion_edf_tpu_torch/tools/)

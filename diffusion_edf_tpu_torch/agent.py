@@ -25,10 +25,19 @@ when its bundle's parameters are written (their version counters), moved,
 or when the model's ``edge_impl`` or training mode changes.
 
 Given a mesh, each Langevin rollout is seed-sharded over its ``data`` axis
-(``parallel/sharded.py::sharded_langevin_sample``): every rank extracts the
-features, rolls out its block of every request's seeds and gathers the
-final poses; the critic and the next stage see all of them.  That path, and
-an agent built with ``use_runtime=False``, runs eagerly.
+(the counterpart of the JAX package's ``sharded_langevin_sample``): every
+rank extracts the features, rolls out its block of every request's seeds
+(padded to a multiple of the axis size) and gathers the final poses (and
+the trajectory); the critic and the next stage see all of them.  In the
+runtime a rank's rollout entry holds its block: the step graphs draw
+nothing and run no collective (the noise of the whole padded batch is
+drawn before them and each step reads its block, as ``langevin_sample(
+seed_block=)`` draws it), and the gather is one more program after them,
+on CUDA a graph over the mesh's NCCL groups (an agent over gloo groups on
+CUDA raises).  Extraction and the critic's energies are replicated: the
+same entries as without a mesh.  An agent built with ``use_runtime=False``
+runs every stage eagerly (``parallel/sharded.py::sharded_langevin_sample``
+with a mesh): the reference.
 """
 from __future__ import annotations
 
@@ -45,7 +54,7 @@ from .diffusion.langevin import (N_COLUMNS, LangevinSchedule, build_schedule, dr
                                  langevin_step, schedule_table)
 from .graphs import Program, copy_into, pool_bytes
 from .nn import cuda_build
-from .parallel.mesh import Mesh
+from .parallel.mesh import Mesh, gather_blocks, pad_to_multiple, require_capturable
 from .parallel.sharded import sharded_langevin_sample
 from .train.data import PointCloud, TargetPoseDemo, compose_proc_fn, pad_pointcloud
 from .train.factory import build_score_model
@@ -122,31 +131,49 @@ class _Entry:
 class _Rollout:
     """The Langevin rollout of one shape: static poses, step counter,
     schedule table, noise draws and trajectory, and one program for each
-    variant of the step the schedule's pattern holds (True: with noise)."""
+    variant of the step the schedule's pattern holds (True: with noise).
+    With a mesh the poses and the trajectory are this rank's block of the
+    seeds padded to ``n``, the noise is the whole padded batch's, and one
+    more program gathers the blocks."""
 
     def __init__(self, score_fn, src, R: int, nT: int, pattern: Tuple[bool, ...], record: bool,
-                 device: torch.device, pool):
+                 device: torch.device, pool, mesh: Optional[Mesh] = None):
         S = len(pattern)
-        self.src, self.pattern, self.device, self.pool = src, pattern, device, pool
+        self.src, self.pattern, self.device, self.pool, self.mesh = src, pattern, device, pool, mesh
         self.score_fn = score_fn
-        self.T = torch.zeros(R, nT, 7, device=device)
+        W = mesh.axis_size("data") if mesh is not None else 1
+        self.nT, self.n = nT, nT + (-nT) % W
+        self.blk = self.n // W
+        self.start = mesh.index("data") * self.blk if mesh is not None else 0
+        self.T = torch.zeros(R, self.blk, 7, device=device)
         self.step = torch.zeros(1, dtype=torch.long, device=device)
         self.table = torch.zeros(S, N_COLUMNS, device=device)
-        self.noise = torch.zeros(S, 2, R, nT, 3, device=device) if any(pattern) else None
-        self.traj = torch.zeros(S + 1, R, nT, 7, device=device) if record else None
+        self.noise = torch.zeros(S, 2, R, self.n, 3, device=device) if any(pattern) else None
+        self.traj = torch.zeros(S + 1, R, self.blk, 7, device=device) if record else None
         self.steps: Dict[bool, Program] = {}
+        self.gather: Optional[Program] = None
 
     def _step_fn(self, hot: bool):
         # the step closes over the buffers, not over self: a cycle would leave the entry's graphs to the
         # garbage collector, which may run while another graph is being captured
         score_fn, T, table, step, traj = self.score_fn, self.T, self.table, self.step, self.traj
-        noise = self.noise if hot else None
+        noise, start, blk = self.noise if hot else None, self.start, self.blk
 
         def fn():
-            langevin_step(score_fn, T, table, step, None if noise is None else noise.index_select(0, step)[0], traj)
+            langevin_step(score_fn, T, table, step,
+                          None if noise is None else noise.index_select(0, step)[0].narrow(-2, start, blk), traj)
+        return fn
+
+    def _gather_fn(self):
+        T, traj, group = self.T, self.traj, self.mesh.group("data")
+
+        def fn():
+            return gather_blocks(T, group, -2), None if traj is None else gather_blocks(traj, group, -2)
         return fn
 
     def run(self, T0: torch.Tensor, table: np.ndarray, generator: Optional[torch.Generator]):
+        if self.mesh is not None:
+            T0 = pad_to_multiple(T0, self.n // self.blk, dim=-2)[0].narrow(-2, self.start, self.blk)
         self.T.copy_(T0)
         self.step.zero_()
         self.table.copy_(torch.as_tensor(table))
@@ -163,20 +190,28 @@ class _Rollout:
                 self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool)
             else:
                 program()
-        return self.T, self.traj
+        if self.mesh is None:
+            return self.T, self.traj
+        if self.gather is None:
+            self.gather = Program(self._gather_fn(), self.device, self.pool, mesh=self.mesh)
+            T, traj = self.gather.out
+        else:
+            T, traj = self.gather()
+        return T.narrow(-2, 0, self.nT), None if traj is None else traj.narrow(-2, 0, self.nT)
 
     @property
     def capture_s(self) -> float:
-        return sum(p.capture_s for p in self.steps.values())
+        return sum(p.capture_s for p in (*self.steps.values(), self.gather) if p is not None)
 
 
 class _BundleRuntime:
-    """The compiled sampling path of one bundle (see the module docstring).
+    """The compiled sampling path of one bundle (see the module docstring),
+    its rollouts seed-sharded over ``mesh``'s ``data`` axis if given.
     Callers hold ``lock`` from :meth:`extract` until they have read what
     :meth:`rollout` or :meth:`energy` returned: the buffers are shared."""
 
-    def __init__(self, bundle: ModelBundle):
-        self.bundle = bundle
+    def __init__(self, bundle: ModelBundle, mesh: Optional[Mesh] = None):
+        self.bundle, self.mesh = bundle, mesh
         self.lock = threading.RLock()
         self._attention = [m for m in bundle.model.modules() if hasattr(m, "edge_impl")]
         self._stamp = None
@@ -258,7 +293,7 @@ class _BundleRuntime:
                 return model.score(T, key_ms, query, t)
 
             entry = self.entries[name][key] = _Rollout(score_fn, (key_ms, query), R, nT, pattern, record,
-                                                       self.bundle.device, self.pool)
+                                                       self.bundle.device, self.pool, self.mesh)
         return entry.run(T0, schedule_table(sched, self.bundle.ang_mult, self.bundle.lin_mult), generator)
 
     def energy(self, key_ms, query, T: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -293,13 +328,19 @@ class DiffusionEdfAgent:
         (every rank of the mesh calls :meth:`sample` with the same
         arguments and a generator in the same state, and gets the same
         result: one process's on the seeds padded to a multiple of the axis
-        size).  ``use_runtime=False`` runs every stage eagerly (extraction,
-        ``langevin_sample``, energy): the reference the runtime is held to."""
+        size).  On CUDA the runtime holds the mesh's collectives in CUDA
+        graphs, so its groups must be NCCL (a gloo mesh raises here).
+        ``use_runtime=False`` runs every stage eagerly (extraction,
+        ``langevin_sample`` or ``sharded_langevin_sample``, energy): the
+        reference the runtime is held to."""
         self.models = list(models)
         self.mesh = mesh
         self.critic = critic
-        self.use_runtime = use_runtime and mesh is None
-        self._runtimes = [_BundleRuntime(b) for b in self.models]
+        self.use_runtime = use_runtime
+        if use_runtime:
+            for b in self.models:
+                require_capturable(mesh, b.device, "DiffusionEdfAgent(mesh=)")
+        self._runtimes = [_BundleRuntime(b, mesh) for b in self.models]
         self._critic_runtime = _BundleRuntime(critic) if critic is not None else None
         self.proc_fn = compose_proc_fn(preprocess_config, seed=preprocess_seed)
         self.unrescale = 1.0  # the unprocess pipeline is a rescale (cm -> m) of poses

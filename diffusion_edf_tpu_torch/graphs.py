@@ -26,6 +26,21 @@ parameters, optimizer state) have their counters bumped after every replay
 (no launch), so every cache keyed by a version (``nn/util.py::cached``,
 the agent's runtime) sees the write.
 
+A program over a mesh (``mesh=``) holds the mesh's collectives in its
+graph.  Its groups must be NCCL on CUDA (``parallel/mesh.py::
+Mesh.capturable``; a gloo group copies CUDA tensors through the host, and
+the program raises).  Every NCCL communicator the function touches is
+created by the eager first call, which runs the same collectives on the
+same groups.  Each collective then runs in the graph on its group's
+stream, joined to the capturing stream by events.  Every rank must build
+and replay its programs in one order, as every rank must call a
+collective: a rank that captures or replays alone blocks the others.  In a
+process with a process group (a program over a mesh or not) the device is
+synchronised before a capture, so that no eager collective is in flight,
+and the capture is thread-local (``capture_error_mode="thread_local"``):
+the NCCL watchdog thread queries its works' events meanwhile, which a
+global capture forbids to every thread.
+
 The hand-written kernels count their launches in Python globals
 (``nn/edge_kernel.py``: ``launches``, ``launches_bf16``;
 ``nn/fused_attention.py``: ``launches``), which a capture bumps without
@@ -42,9 +57,11 @@ import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from .nn import edge_kernel as _ek
 from .nn import fused_attention as _fa
+from .parallel.mesh import Mesh, require_capturable
 
 __all__ = ["Program", "launch_counts", "add_launches", "tensors_of", "copy_into", "pool_bytes"]
 
@@ -109,10 +126,13 @@ class Program:
     call it to run it again.  ``out`` holds the static outputs, ``delta``
     the kernel launches of one run, ``capture_s`` the seconds of the capture
     (0 on the CPU).  ``generators``: those that ``fn`` draws from;
-    ``writes``: the tensors whose version counters a replay bumps."""
+    ``writes``: the tensors whose version counters a replay bumps;
+    ``mesh``: the mesh whose collectives ``fn`` runs."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, pool: Optional[tuple] = None,
-                 generators: Sequence[torch.Generator] = (), writes: Sequence[torch.Tensor] = ()):
+                 generators: Sequence[torch.Generator] = (), writes: Sequence[torch.Tensor] = (),
+                 mesh: Optional[Mesh] = None):
+        require_capturable(mesh, device, "graphs.Program")
         self.fn = fn
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.writes = list(writes)
@@ -127,6 +147,9 @@ class Program:
         with torch.cuda.stream(side):
             first = fn()
         main.wait_stream(side)
+        grouped = dist.is_initialized()
+        if grouped:  # no eager collective in flight while capturing
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         for g in generators:
@@ -137,7 +160,8 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local" if grouped else "global"):
                 out = fn()
         finally:
             if collecting:

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..geom.irreps import Irrep, Irreps
+from ..parallel.mesh import current_pose_block
 from .util import cached, constant, sigmoid_norm, silu_norm
 
 __all__ = [
@@ -265,8 +266,20 @@ class GateFromIrreps(nn.Module):
 
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """The draw of a dropout: a bool mask, True with probability ``1 - rate``
-    (``uniform < 1 - rate``, as ``jax.random.bernoulli`` draws it)."""
-    return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+    (``uniform < 1 - rate``, as ``jax.random.bernoulli`` draws it).
+
+    Inside ``parallel/mesh.py::pose_block(R, n, start, size)`` the rows
+    (axis 0 of ``shape``) are R requests' ``size`` poses' rows, pose-major:
+    the mask is drawn for all ``n`` poses and the block's rows kept, so the
+    block is dropped as it is in one call on the whole batch."""
+    block = current_pose_block()
+    if block is None:
+        return torch.rand(shape, generator=generator, device=device) < (1.0 - rate)
+    r, n, start, size = block
+    rows, rest = shape[0], tuple(shape[1:])
+    assert rows % (r * size) == 0, (shape, block)
+    full = torch.rand((r, n, rows // (r * size)) + rest, generator=generator, device=device)
+    return full.narrow(1, start, size).reshape(shape) < (1.0 - rate)
 
 
 def drop_irreps(f: torch.Tensor, keep: torch.Tensor, irreps: Irreps, rate: float) -> torch.Tensor:

@@ -44,7 +44,14 @@ def initialize_distributed(
     for ``"cpu"``; it never changes on its own.  On CUDA each rank takes
     the card ``LOCAL_RANK`` (else its rank) modulo the card count, so two
     ranks on one card share it (which ``nccl`` refuses: pass
-    ``backend="gloo"`` there)."""
+    ``backend="gloo"`` there).
+
+    The runtime captures NCCL collectives in CUDA graphs
+    (``graphs.Program``).  PyTorch 2.11 with NCCL 2.28 needs no setting
+    for that: its defaults (``TORCH_NCCL_ASYNC_ERROR_HANDLING`` among them)
+    capture and replay exactly, and ``chip_smoke.py`` phase 13d checks it on
+    every run; the program synchronises before a capture and captures
+    thread-locally, so the watchdog's event queries do not meet it."""
     if dist.is_initialized():
         return True
     addr = coordinator_address or _env("COORDINATOR_ADDRESS")

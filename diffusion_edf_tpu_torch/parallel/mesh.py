@@ -17,7 +17,11 @@ one-rank mesh, on which every collective is the identity.
 
 Models built with an axis name (``scene_axis_name``, ``query_shard_axes``)
 resolve it in the mesh of the innermost ``with use_mesh(mesh):``, as the
-JAX modules resolve theirs in the active ``Mesh``.
+JAX modules resolve theirs in the active ``Mesh``.  Inside ``with
+pose_block(...):`` a model scores one block of a batch of poses, and every
+dropout over its per-pose rows draws the mask of the whole batch and keeps
+the block's rows (``nn/layers.py::keep_mask``), so a data-parallel step
+draws one process's masks.
 
 The collectives are autograd functions with the backward that a
 replicated loss needs: :func:`reduce_from_shards` sums per-shard partial
@@ -27,7 +31,10 @@ that enters per-shard work (backward: the sum of the per-shard gradients),
 :func:`gather_blocks` gathers blocks (backward: this rank's block of the
 gradient).  ``torch.distributed.nn.functional.all_reduce`` sums the
 gradient again in its backward, which counts a replicated loss once per
-rank.
+rank.  None of them reads a device value on the host, so each can run
+inside a CUDA graph (``graphs.Program``) over NCCL groups
+(:meth:`Mesh.capturable`); a gloo group carries CUDA tensors through the
+host and cannot.
 """
 from __future__ import annotations
 
@@ -42,6 +49,7 @@ import torch.distributed as dist
 __all__ = [
     "Mesh", "make_mesh", "use_mesh", "current_mesh", "pad_to_multiple", "shard_batch",
     "gather_batch", "replicate", "reduce_from_shards", "copy_to_shards", "gather_blocks", "all_reduce_max",
+    "all_reduce_sum", "require_capturable", "pose_block", "current_pose_block",
 ]
 
 Axes = Union[str, Sequence[str]]
@@ -102,6 +110,19 @@ class Mesh:
         """The process group of this rank along ``axes``; None on one rank."""
         return self._groups[self._axes(axes)] if self.axis_size(axes) > 1 else None
 
+    def backends(self) -> List[str]:
+        """The backend of every process group the mesh holds (none on one
+        process)."""
+        return sorted({str(dist.get_backend(g)) for g in self._groups.values() if g is not None})
+
+    def capturable(self, device: Union[str, torch.device]) -> bool:
+        """Whether the mesh's collectives can run inside a ``graphs.Program``
+        on ``device``: on the CPU, where a program runs eagerly, always; on
+        CUDA when every group it holds is NCCL (or it holds none)."""
+        if torch.device(device).type != "cuda":
+            return True
+        return all(b == "nccl" or "cuda:nccl" in b.split(",") for b in self.backends())
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
 
@@ -135,6 +156,38 @@ def current_mesh() -> Mesh:
     if not _ACTIVE:
         raise RuntimeError("a model built with a mesh axis name runs inside `with use_mesh(mesh):`")
     return _ACTIVE[-1]
+
+
+def require_capturable(mesh: Optional[Mesh], device: Union[str, torch.device], what: str) -> None:
+    """Raise unless ``mesh``'s collectives can be captured on ``device``
+    (:meth:`Mesh.capturable`); ``what`` names the caller."""
+    if mesh is not None and not mesh.capturable(device):
+        raise RuntimeError(f"{what}: the mesh's {'/'.join(mesh.backends())} process groups carry CUDA tensors "
+                           "through the host and cannot run inside a CUDA graph; use NCCL groups, or "
+                           "use_runtime=False to run eagerly")
+
+
+_POSE_BLOCKS: List[Tuple[int, int, int, int]] = []
+
+
+@contextlib.contextmanager
+def pose_block(requests: int, n: int, start: int, size: int) -> Iterator[None]:
+    """Inside the block, a model scores the poses ``start:start + size`` of
+    an ``n``-pose batch of each of ``requests`` requests (axis 1 of its
+    ``(requests, poses, 7)`` input): a dropout mask over its per-pose rows
+    is drawn for all ``n`` poses and this block's rows kept
+    (``nn/layers.py::keep_mask``)."""
+    _POSE_BLOCKS.append((requests, n, start, size))
+    try:
+        yield
+    finally:
+        _POSE_BLOCKS.pop()
+
+
+def current_pose_block() -> Optional[Tuple[int, int, int, int]]:
+    """``(requests, n, start, size)`` of the innermost :func:`pose_block`,
+    or None."""
+    return _POSE_BLOCKS[-1] if _POSE_BLOCKS else None
 
 
 # --------------------------------------------------------------------------- #
@@ -208,9 +261,10 @@ class _GatherBlocks(torch.autograd.Function):
     def forward(ctx, x, group, dim):
         ctx.dim, ctx.n = dim, x.shape[dim]
         ctx.rank = dist.get_rank(group)
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+        block = x.movedim(dim, 0).contiguous()  # the gathered axis in front: each rank's block is one span
+        out = block.new_empty((dist.get_world_size(group) * block.shape[0],) + tuple(block.shape[1:]))
+        dist.all_gather_into_tensor(out, block, group=group)
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
 
     @staticmethod
     def backward(ctx, g):
@@ -243,3 +297,13 @@ def all_reduce_max(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch
     y = x.clone()
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group: Optional[dist.ProcessGroup]) -> List[torch.Tensor]:
+    """Every tensor summed over the group, in one all-reduce of their
+    concatenation (the data-parallel step's gradients)."""
+    if group is None:
+        return list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [f.view_as(t) for f, t in zip(flat.split([t.numel() for t in tensors]), tensors)]

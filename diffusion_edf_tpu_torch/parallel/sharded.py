@@ -8,6 +8,15 @@ points (the scene-sharded score) or the diffused poses (training).  Each
 rank runs the normal single-process code on its block, with the edge
 kernels of its ``edge_impl``; the collectives are those of
 ``parallel/mesh.py``.
+
+Each function has a compiled counterpart, as the JAX package jits each:
+the agent's runtime rolls out a rank's block of the seeds
+(``agent.py::_BundleRuntime``), :func:`scene_sharded_score_fn` holds one
+``graphs.Program`` a shape, and the trainer one a demo shape (the step of
+:func:`make_sharded_train_step`).  On CUDA over NCCL groups each program
+is a CUDA graph with the collectives inside it; on the CPU it runs eagerly.
+``use_runtime=False`` (and :func:`sharded_langevin_sample`) run eagerly: the
+reference.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch
 from ..data import FeaturedPoints
 from ..diffusion.langevin import LangevinSchedule, langevin_sample
 from ..geom import so3
+from ..graphs import Program, copy_into
 from ..ops.neighbors import pairwise_sqdist
 from .mesh import Mesh, gather_batch, gather_blocks, pad_to_multiple, replicate, shard_batch, use_mesh
 
@@ -122,6 +132,7 @@ def scene_sharded_score_fn(
     scene_axis: str = "model",
     data_axis: str = "data",
     method: str = "score",
+    use_runtime: bool = True,
 ):
     """Score function with the scene (key) cloud partitioned over
     ``scene_axis`` and the pose seeds over ``data_axis``:
@@ -144,11 +155,21 @@ def scene_sharded_score_fn(
     attends more in-radius edges and moves smoothly away from it (towards
     the cap-free limit, not wrong, but dependent on the shard count).  Size
     the caps so that truncation is rare.  Scales are padded so that every
-    block holds at least ``k`` points (:func:`split_scene_for_mesh`)."""
+    block holds at least ``k`` points (:func:`split_scene_for_mesh`).
+
+    **Runtime** (``use_runtime=True``, the counterpart of the JAX
+    function's ``jax.jit``): one ``graphs.Program`` a ``(Ts.shape,
+    time.shape)`` (``score.entries``), whose first call runs the score
+    eagerly under ``torch.no_grad()`` and, on CUDA, captures it (this rank's
+    pose block, the softmax tail's collectives, ``copy_to_shards`` and the
+    final gather) in one CUDA graph that later calls of the shape replay;
+    the mesh's groups must be NCCL there (else it raises).  Every rank calls
+    the score with the same shapes in the same order.  ``use_runtime=False``
+    runs eagerly: the reference."""
     M = mesh.axis_size(scene_axis)
     local = [_scene_block(fp, M, mesh.index(scene_axis)) for fp in _split_for_model(model, key_ms, M)]
 
-    def score(Ts: torch.Tensor, time: torch.Tensor):
+    def run(Ts: torch.Tensor, time: torch.Tensor):
         T_b, n = shard_batch(mesh, Ts, data_axis, dim=1)
         t_b, _ = shard_batch(mesh, time, data_axis, dim=1)
         with use_mesh(mesh):
@@ -157,6 +178,29 @@ def scene_sharded_score_fn(
             return gather_batch(mesh, out, n, data_axis, dim=1)
         return tuple(gather_batch(mesh, o, n, data_axis, dim=1) for o in out)
 
+    if not use_runtime:
+        return run
+    device = query.x.device
+    pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    entries: Dict[tuple, Tuple[List[torch.Tensor], Program]] = {}
+
+    def score(Ts: torch.Tensor, time: torch.Tensor):
+        key = (tuple(Ts.shape), tuple(time.shape))
+        entry = entries.get(key)
+        if entry is None:
+            inputs = [Ts.to(device, copy=True), time.to(device, copy=True)]
+
+            def fn():
+                with torch.no_grad():
+                    return run(*inputs)
+            entry = entries[key] = (inputs, Program(fn, device, pool, mesh=mesh))
+            out = entry[1].out
+        else:
+            copy_into(entry[0], [Ts, time])
+            out = entry[1]()
+        return out.clone() if isinstance(out, torch.Tensor) else tuple(o.clone() for o in out)
+
+    score.entries = entries
     return score
 
 
@@ -199,15 +243,25 @@ def make_sharded_train_step(mesh: Mesh, trainer) -> Callable[..., Dict[str, floa
     then every rank takes the same AMSGrad and EMA update.  The parameters
     are made equal (rank 0's) here and stay equal.
 
-    With dropout on, each rank draws the masks of its own block from a
-    generator of its own (seeded by the trainer's seed and the rank): not
-    one process's masks, which come from the trainer's generator for all
-    poses at once, and not correlated between ranks."""
+    With dropout on, every rank draws every mask from the trainer's
+    generator, whose state is equal on every rank: the extractor's masks are
+    one process's, and a mask over the per-pose rows of the score or the
+    energy is drawn for the whole batch and narrowed to the rank's block
+    (``parallel/mesh.py::pose_block``).  So the step is one process's step,
+    dropout included, when the step's pose counts (the diffused poses, and a
+    critic's ranked poses) are multiples of the axis size; otherwise it is
+    one process's step on the batch padded as ``shard_batch`` pads it.
+
+    The trainer's runtime (``use_runtime=True``, the default) compiles the
+    step, as the JAX package jits it: one ``graphs.Program`` a demo shape
+    holding the draws, the forward on the block, the gathers, the backward,
+    the gradient all-reduce, AMSGrad and the EMA, on CUDA one CUDA graph
+    over NCCL groups (gloo groups raise); ``step`` and
+    ``trainer.train_epoch(mesh=mesh)`` replay it.  Every rank steps on the
+    same demos in the same order."""
     with torch.no_grad():
         for t in trainer.params + trainer.ema:
             replicate(mesh, t)
-    g = torch.Generator(device=trainer.device).manual_seed(trainer.seed * 1_000_003 + mesh.rank)
-    trainer.model.set_dropout_generator(g)
 
     def step(batch) -> Dict[str, float]:
         return trainer.step(batch, mesh=mesh)

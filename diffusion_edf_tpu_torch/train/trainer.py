@@ -45,11 +45,16 @@ flat flax keys of ``weights.py``, ``opt_state/{mu,nu,nu_max}/...`` and
 (JSON: epoch, steps).  :meth:`DiffusionEdfTrainer.export` writes the
 parameters alone in the layout of the shipped ``checkpoints/**/*.npz``.
 
-Given a mesh, :meth:`DiffusionEdfTrainer.step` is data parallel over one
-of its axes (``parallel/sharded.py::make_sharded_train_step``); that step
-runs eagerly (gloo's collectives cannot be captured)."""
+Given a mesh, :meth:`DiffusionEdfTrainer.step` and :meth:`train_epoch`
+are data parallel over its ``"data"`` axis
+(``parallel/sharded.py::make_sharded_train_step``), through the same
+runtime: an entry a demo shape and mesh, whose program holds the step's
+collectives too (the gathers of the pose blocks and the gradient
+all-reduce); on CUDA its groups must be NCCL, which a CUDA graph can hold
+(a gloo mesh raises; ``use_runtime=False`` runs it eagerly)."""
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -60,7 +65,6 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import yaml
 
 from ..data import FeaturedPoints, stack_points
@@ -68,7 +72,7 @@ from ..diffusion.diffuse import biequiv_diffusion, random_time
 from ..geom import so3
 from ..graphs import Program, copy_into, pool_bytes, tensors_of
 from ..models.score_model import train_loss
-from ..parallel.mesh import Mesh, gather_batch, shard_batch
+from ..parallel.mesh import Mesh, all_reduce_sum, gather_batch, pose_block, shard_batch
 from ..weights import flat_arrays, init_params, load_params_npz, unflatten_arrays
 from .augment import AugmentConfig, _frame_about, augment_batch
 from .data import DemoSequence, compose_proc_fn, pad_pointcloud
@@ -321,16 +325,24 @@ class DiffusionEdfTrainer:
         def block(x):  # this rank's block of the pose axis
             return x if mesh is None else shard_batch(mesh, x)[0]
 
+        def masks_of(b):  # inside: a dropout mask over the block's rows is the whole batch's, narrowed
+            if mesh is None:
+                return contextlib.nullcontext()
+            return pose_block(1, len(b) * mesh.axis_size("data"), len(b) * mesh.index("data"), len(b))
+
         def gathered(x, n):  # every rank's block, the padding dropped
             return x if mesh is None else gather_batch(mesh, x, n)
 
         n = inputs.Ts.shape[0]
-        ang, lin = m.score(block(inputs.Ts)[None], key_ms, query, block(inputs.times)[None])
+        Tb = block(inputs.Ts)
+        with masks_of(Tb):
+            ang, lin = m.score(Tb[None], key_ms, query, block(inputs.times)[None])
         ang, lin = gathered(ang[0], n), gathered(lin[0], n)
         loss, stats = train_loss(ang, lin, inputs.tgt_ang, inputs.tgt_lin, inputs.times, self.ang_mult, self.lin_mult)
         if self.rank_cfg is not None:
             Tr = block(inputs.Ts_rank)
-            E = gathered(m.energy(Tr[None], key_ms, query, Tr.new_ones(1, Tr.shape[0]))[0], inputs.Ts_rank.shape[0])
+            with masks_of(Tr):
+                E = gathered(m.energy(Tr[None], key_ms, query, Tr.new_ones(1, len(Tr)))[0], inputs.Ts_rank.shape[0])
             rloss, racc = rank_loss(E, inputs.badness, self.rank_cfg)
             loss = loss + self.rank_cfg.weight * rloss
             stats.update({"loss/train": loss, "rank/loss": rloss, "rank/pair_acc": racc, "rank/e_target": E[0],
@@ -343,11 +355,8 @@ class DiffusionEdfTrainer:
         ``mesh``, the gradient summed over the ranks of the ``"data"`` axis."""
         loss, stats = self.loss(inputs, mesh)
         grads = list(torch.autograd.grad(loss, self.params))
-        group = mesh.group("data") if mesh is not None else None
-        if group is not None:
-            flat = torch.cat([g.reshape(-1) for g in grads])
-            dist.all_reduce(flat, group=group)
-            grads = [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+        if mesh is not None:
+            grads = all_reduce_sum(grads, mesh.group("data"))
         return loss, stats, grads
 
     def update(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
@@ -364,22 +373,22 @@ class DiffusionEdfTrainer:
     def step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """One training step on ``batch`` (dropout on); its statistics.  With
         ``mesh``, data parallel over the ``"data"`` axis
-        (``make_sharded_train_step``), eagerly."""
+        (``make_sharded_train_step``)."""
         keys, out = self._step(batch, mesh)
         return dict(zip(keys, out.tolist()))
 
     def _step(self, batch: DemoBatch, mesh: Optional[Mesh] = None) -> Tuple[List[str], torch.Tensor]:
-        """One step through the runtime (or eagerly, without it or with
-        ``mesh``): the statistics' names and their values stacked on the
-        device (the entry's static output when replayed)."""
+        """One step through the runtime (or eagerly, without it): the
+        statistics' names and their values stacked on the device (the
+        entry's static output when replayed)."""
         assert self.optimizer is not None, "call init() first"
-        if mesh is not None or not self.use_runtime:
+        if not self.use_runtime:
             stats = self.update(batch, mesh)
             keys = list(stats)
             return keys, _stacked(stats, keys)
         self._check()
         key = (tuple(t.shape for t in tensors_of(_demo_tensors(batch))), batch.sym_on,
-               tuple(m.edge_impl for m in self._attentions))
+               tuple(m.edge_impl for m in self._attentions), mesh)
         entry = self._entries.get(key)
         if entry is not None:
             copy_into(_demo_tensors(entry.batch), _demo_tensors(batch))
@@ -389,14 +398,14 @@ class DiffusionEdfTrainer:
         trainer = weakref.ref(self)  # the step must not hold the trainer: an entry in a cycle outlives it
 
         def fn():
-            stats = trainer().update(static)
+            stats = trainer().update(static, mesh)
             keys[:] = list(stats)
             return _stacked(stats, keys)
 
         drawing = [self.generator] + [m.dropout_generator for m in self.model.modules()
                                       if getattr(m, "dropout_generator", None) is not None]
         generators = list({id(g): g for g in drawing}.values())
-        program = Program(fn, self.device, self.pool, generators=generators, writes=self._written())
+        program = Program(fn, self.device, self.pool, generators=generators, writes=self._written(), mesh=mesh)
         self._entries[key] = _StepEntry(static, program, keys)
         return keys, program.out
 
@@ -447,19 +456,20 @@ class DiffusionEdfTrainer:
         keys = list(stats)
         return dict(zip(keys, torch.stack([stats[k].float() for k in keys]).tolist()))
 
-    def train_epoch(self, shuffle: bool = True) -> Dict[str, float]:
+    def train_epoch(self, shuffle: bool = True, mesh: Optional[Mesh] = None) -> Dict[str, float]:
         """One step on every demo, in an order shuffled by
         ``np.random.default_rng(epoch)``.  The steps' statistics are copied
         into one device buffer and read once, at the epoch's end (the JAX
         epoch's ``jax.device_get``); each then goes to the log.  Returns the
-        last step's."""
+        last step's.  With ``mesh``, each step is data parallel
+        (``make_sharded_train_step``, called first)."""
         assert self.optimizer is not None, "call init() first"
         order = np.arange(len(self.batches))
         if shuffle:
             np.random.default_rng(self.epoch).shuffle(order)
         names, rows = [], None
         for j, i in enumerate(order):
-            keys, out = self._step(self.batches[i])
+            keys, out = self._step(self.batches[i], mesh)
             if rows is None:
                 rows = out.new_empty(len(order), out.numel())
             rows[j].copy_(out)

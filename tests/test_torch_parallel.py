@@ -6,12 +6,19 @@ port's ranks are spawned processes in a gloo group (``tests/torch_ranks.py``).
   the padded batch with the same generator (1e-6), and against the JAX
   package's ``sharded_langevin_sample`` with the toy score of
   ``tests/test_parallel.py`` at temperature 0 (1e-5); the agent's mesh
-  entry against one process (1e-6);
+  entry against one process (1e-6), and its runtime (the seed-sharded
+  rollout entries) against the eager agent (``use_runtime=False``) on the
+  mesh bit for bit, a two-stage cascade with a critic through ``sample``
+  and ``sample_batch``, with no entry added after a ``warmup``;
 * the query- and the scene-sharded score of the tiny model on a (2, 2)
   (data, model) mesh against the JAX package on the same mesh shape (1e-4)
   and the port's replicated score; the tiny critic's energy and its score
   (the gradient of the energy, through the collectives' backward) under a
-  scene group and under query sharding against the replicated ones."""
+  scene group and under query sharding against the replicated ones; the
+  scene-sharded score's runtime and the query-sharded score in a
+  ``graphs.Program`` against the eager calls bit for bit, first call and
+  replay; a gloo mesh is not ``capturable`` on CUDA, and a program over it
+  there refuses."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +37,9 @@ from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent, load_model_bundle
 from diffusion_edf_tpu_torch.data import FeaturedPoints as TFP
 from diffusion_edf_tpu_torch.data import stack_points
 from diffusion_edf_tpu_torch.diffusion.langevin import build_schedule, langevin_sample
+from diffusion_edf_tpu_torch.nn.layers import keep_mask
 from diffusion_edf_tpu_torch.parallel import make_mesh
+from diffusion_edf_tpu_torch.parallel.mesh import pose_block
 from diffusion_edf_tpu_torch.parallel.sharded import cap_bound_rows, pad_seeds_to_multiple
 from diffusion_edf_tpu_torch.train.data import PointCloud
 from diffusion_edf_tpu_torch.train.factory import build_score_model as t_build
@@ -38,6 +47,7 @@ from diffusion_edf_tpu_torch.weights import init_params
 
 from . import torch_ranks
 from .test_torch_agent import tiny_config_dir  # noqa: F401 (fixture)
+from .test_torch_runtime import _config_dir as runtime_config_dir
 from .test_torch_tables import torch_to_jax_params
 from .test_torch_train import _model_cfg
 
@@ -54,6 +64,26 @@ def _toy_seeds(n, seed=1):
 def test_mesh_of_one_process():
     mesh = make_mesh(axis_names=("data", "model"))
     assert mesh.shape == {"data": 1, "model": 1} and mesh.group("data") is None and mesh.index("model") == 0
+
+
+def test_mesh_of_one_process_is_capturable():
+    """One process holds no group: its programs may capture on CUDA too."""
+    mesh = make_mesh()
+    assert mesh.backends() == [] and mesh.capturable("cuda") and mesh.capturable("cpu")
+
+
+@pytest.mark.parametrize("shape", [(12, 4, 5), (12, 3)], ids=["attention", "irreps"])
+def test_keep_mask_of_a_pose_block(shape):
+    """Inside ``pose_block(R=2, n=6, start=2, size=2)`` a dropout mask over
+    the block's rows (2 requests x 2 poses x 3 rows a pose) is the mask of
+    the whole batch's rows, narrowed to the block, from the same generator
+    state; outside, the plain draw."""
+    full = keep_mask((36,) + shape[1:], 0.3, torch.Generator().manual_seed(0), "cpu")
+    with pose_block(2, 6, 2, 2):
+        block = keep_mask(shape, 0.3, torch.Generator().manual_seed(0), "cpu")
+    want = full.reshape((2, 6, 3) + shape[1:])[:, 2:4].reshape(shape)
+    assert torch.equal(block, want) and 0 < int(block.sum()) < block.numel()
+    assert torch.equal(keep_mask(shape, 0.3, torch.Generator().manual_seed(0), "cpu"), full[:12])
 
 
 @pytest.mark.parametrize("n", [5, 8, 1])
@@ -96,7 +126,12 @@ def test_sharded_langevin_matches_jax(tmp_path):
 
 def test_agent_mesh_matches_one_process(tmp_path, tiny_config_dir):  # noqa: F811
     """``DiffusionEdfAgent(mesh=...)`` on two ranks, 5 seeds: the trajectory
-    of one process on the 6 padded seeds, with the same generator."""
+    of one process on the 6 padded seeds, with the same generator.  Then
+    the runtime against the eager agent on the mesh, a lowres -> highres ->
+    critic cascade, noise on: trajectories and energies of ``sample`` and
+    of ``sample_batch`` (two requests, 5 and 3 real seeds) equal to the bit
+    on every rank, and the entries after ``warmup`` unchanged by the
+    ``sample`` of its shapes."""
     rng = np.random.default_rng(0)
     scene = PointCloud(points=rng.uniform(-12, 12, (200, 3)).astype(np.float32),
                        colors=rng.uniform(0, 1, (200, 3)).astype(np.float32))
@@ -104,11 +139,21 @@ def test_agent_mesh_matches_one_process(tmp_path, tiny_config_dir):  # noqa: F81
                        colors=rng.uniform(0, 1, (50, 3)).astype(np.float32))
     Ts = _toy_seeds(5) * np.float32([1, 1, 1, 1, 5, 5, 5])
     kw = dict(cfg_dir=tiny_config_dir, scene=scene, grasp=grasp, seed=7)
-    outs = torch_ranks.spawn("agent", 2, tmp_path, Ts_init=Ts, mesh_shape=(2,), **kw)
+    critic_dir = runtime_config_dir(tmp_path, "ebm", ebm=True)
+    outs = torch_ranks.spawn("agent", 2, tmp_path, Ts_init=Ts, mesh_shape=(2,), critic_dir=critic_dir, **kw)
     one = torch_ranks._agent(Ts_init=np.concatenate([Ts, Ts[-1:]]), mesh_shape=None, **kw)
     for o in outs:
         assert o["traj"].shape == (5, 5, 7)
         np.testing.assert_allclose(o["traj"], one["traj"][:, :5], atol=1e-6)
+        run, ref = o["runtime"], o["eager"]
+        assert run["traj"].shape == (7, 5, 7) and run["batch"].shape == (2, 7, 5, 7)
+        for k in ("traj", "energy", "batch", "batch_energy"):
+            np.testing.assert_array_equal(run[k], ref[k], err_msg=k)
+        assert np.abs(run["traj"][-1] - run["traj"][0]).max() > 1e-3
+        assert np.isinf(run["batch_energy"][1, -2:]).all()  # the padding seeds rank last
+        assert o["sizes_after"] == o["sizes_warm"]
+        assert o["rollout_entries"] == [(1, 5, 3, True, (True, True, False))]
+    np.testing.assert_array_equal(outs[0]["runtime"]["batch"], outs[1]["runtime"]["batch"])
 
 
 def _scene(n=64, seed=0, half=20.0):
@@ -172,6 +217,23 @@ def test_sharded_scores_match_jax(tmp_path):
         np.testing.assert_allclose(out["query"][i][0].numpy(), np.asarray(jref[i]), atol=1e-4)
         np.testing.assert_allclose(out["query"][i].numpy(), ref["score"][i].numpy(), atol=1e-5)
         np.testing.assert_allclose(out["scene"][i][0].numpy(), np.asarray(jsh[i]), atol=1e-4)
+    _runtime_equals_eager(out, ("",))
+
+
+def _runtime_equals_eager(out, suffixes):
+    """The runtime's outputs of one rank against its eager calls, bit for
+    bit, and the gloo mesh's refusal on CUDA."""
+    assert out["backends"] == ["gloo"] and out["capturable"] == {"cuda": False, "cpu": True}
+    assert "gloo" in out["refused"] and "CUDA graph" in out["refused"]
+    for sfx in suffixes:
+        assert out["entries" + sfx] == 1
+        eager = {"runtime": {n: out[n + sfx] for n in ("scene", "query")},
+                 "runtime_flipped": out["eager_flipped" + sfx]}
+        for run, want in eager.items():
+            for name in ("scene", "query"):
+                got, ref = (x if isinstance(x, tuple) else (x,) for x in (out[run + sfx][name], want[name]))
+                for g, r in zip(got, ref, strict=True):
+                    np.testing.assert_array_equal(g.numpy(), r.numpy(), err_msg=f"{run}{sfx} {name}")
 
 
 def test_critic_under_scene_group(tmp_path):
@@ -188,6 +250,7 @@ def test_critic_under_scene_group(tmp_path):
                              mesh_shape=(2, 2), critic=True)
     assert float(ref["score"][0].abs().max()) > 0
     for o in outs:
+        _runtime_equals_eager(o, ("", "_energy"))
         for k in ("query_energy", "scene_energy"):
             np.testing.assert_allclose(o[k].numpy(), ref["energy"].numpy(), rtol=1e-5, atol=1e-6, err_msg=k)
         for k in ("query", "scene"):

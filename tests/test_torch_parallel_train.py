@@ -9,7 +9,15 @@ held to the JAX trainer's ``jax.value_and_grad`` at the tolerances of
 its loss and the gradients it hands the update are one process's at the
 same tolerances, the parameters and EMA after it equal one process's
 update (``apply_grads``) of those gradients, and both ranks hold the same
-parameters."""
+parameters.  Each step goes through the trainer's runtime (one program a
+demo shape, which the card captures); the critic case also runs two
+data-parallel epochs through the runtime and eagerly (``use_runtime=False``)
+from the same state, equal bit for bit.
+
+With dropout on (the score model), every rank draws every mask from the
+trainer's generator, the per-pose rows' masks at the whole batch's shape,
+so the step is one process's step with the same generator seed: the same
+gates, and the runtime's epochs against eager ones bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -23,14 +31,16 @@ from .test_torch_train_step import TOLERANCES, _jax_value_and_grad
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("ebm", [False, True], ids=["score_model", "ebm_critic"])
-def test_data_parallel_step(tmp_path, ebm):
-    tr = _trainer(tmp_path, ebm=ebm)
+@pytest.mark.parametrize("ebm, drop", [(False, 0.0), (True, 0.0), (False, 0.1)],
+                         ids=["score_model", "ebm_critic", "score_model_dropout"])
+def test_data_parallel_step(tmp_path, ebm, drop):
+    tr = _trainer(tmp_path, ebm=ebm, drop=drop)
     tr.init(_demos(1))
     inputs = tr.draw_step(tr.batches[0])
     tr.model.train()
     loss, stats, grads = tr.loss_and_grads(inputs)
-    outs = torch_ranks.spawn("train", 2, tmp_path, cfg_dir=tr.configs_root_dir, demos=_demos(1))
+    epochs = 2 if ebm or drop else 0
+    outs = torch_ranks.spawn("train", 2, tmp_path, cfg_dir=tr.configs_root_dir, demos=_demos(1), epochs=epochs)
     one = flat_arrays(tr.model, grads)
     for o in outs:
         for k in ("Ts", "times", "tgt_ang", "tgt_lin") + (("Ts_rank",) if ebm else ()):
@@ -46,6 +56,18 @@ def test_data_parallel_step(tmp_path, ebm):
             assert np.abs(g - one[k]).max() <= 1e-5 * np.abs(one[k]).max() + 1e-12, k
     for k, p in outs[0]["params"].items():
         np.testing.assert_array_equal(outs[1]["params"][k], p, err_msg=k)
+    for o in outs if epochs else ():  # the runtime's epochs against eager epochs from the same state
+        run, ref = o["epochs_runtime"], o["epochs_eager"]
+        assert run["stats"] == ref["stats"] and run["count"] == ref["count"] == epochs
+        assert run["entries"] == 1 and ref["entries"] == 0
+        for name in ("params", "ema"):
+            for k, v in ref[name].items():
+                np.testing.assert_array_equal(run[name][k], v, err_msg=f"{name} {k}")
+        for name, tensors in ref["opt"].items():
+            for a, b in zip(run["opt"][name], tensors, strict=True):
+                np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+    if drop:  # the JAX step draws other masks
+        return
 
     loss_rtol, grad_tol = TOLERANCES[ebm]
     jloss, _, jgrads = _jax_value_and_grad(tr, inputs, ebm)
