@@ -1,0 +1,2 @@
+"""Per-layer, the pick cells: see ``readers.extract_ms``."""
+from benchmark.metrics.readers import extract_ms as read  # noqa: F401

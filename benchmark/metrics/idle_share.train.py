@@ -1,0 +1,2 @@
+"""Per-layer, the train cells: see ``readers.idle_share``."""
+from benchmark.metrics.readers import idle_share as read  # noqa: F401
