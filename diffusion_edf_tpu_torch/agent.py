@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -59,6 +58,7 @@ from .parallel.sharded import sharded_langevin_sample
 from .train.data import PointCloud, TargetPoseDemo, compose_proc_fn, pad_pointcloud
 from .train.factory import build_score_model
 from .train.trainer import load_configs
+from .utils.profiling import span
 from .weights import init_params, load_params_npz
 
 __all__ = ["ModelBundle", "DiffusionEdfAgent", "load_model_bundle", "load_params_npz"]
@@ -137,9 +137,10 @@ class _Rollout:
     more program gathers the blocks."""
 
     def __init__(self, score_fn, src, R: int, nT: int, pattern: Tuple[bool, ...], record: bool,
-                 device: torch.device, pool, mesh: Optional[Mesh] = None):
+                 device: torch.device, pool, mesh: Optional[Mesh] = None, entry: str = "rollout"):
         S = len(pattern)
         self.src, self.pattern, self.device, self.pool, self.mesh = src, pattern, device, pool, mesh
+        self.entry, self.shape = entry, (R, nT, S, record)
         self.score_fn = score_fn
         W = mesh.axis_size("data") if mesh is not None else 1
         self.nT, self.n = nT, nT + (-nT) % W
@@ -187,13 +188,15 @@ class _Rollout:
         for hot in self.pattern:
             program = self.steps.get(hot)
             if program is None:  # its first run is this step's
-                self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool)
+                self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool, entry=self.entry,
+                                          shape=(*self.shape, hot))
             else:
                 program()
         if self.mesh is None:
             return self.T, self.traj
         if self.gather is None:
-            self.gather = Program(self._gather_fn(), self.device, self.pool, mesh=self.mesh)
+            self.gather = Program(self._gather_fn(), self.device, self.pool, mesh=self.mesh, entry=self.entry,
+                                  shape=(*self.shape, "gather"))
             T, traj = self.gather.out
         else:
             T, traj = self.gather()
@@ -254,7 +257,8 @@ class _BundleRuntime:
             return entry.program()
         dev = self.bundle.device
         inputs = [FeaturedPoints(x=c.x.to(dev), f=c.f.to(dev), mask=c.mask.to(dev)) for c in clouds]
-        entry = self.entries[name][key] = _Entry(inputs, Program(lambda: fn(inputs), dev, self.pool))
+        entry = self.entries[name][key] = _Entry(inputs, Program(lambda: fn(inputs), dev, self.pool, entry=name,
+                                                                 shape=key))
         return entry.program.out
 
     def extract(self, preps, batched: bool):
@@ -293,7 +297,7 @@ class _BundleRuntime:
                 return model.score(T, key_ms, query, t)
 
             entry = self.entries[name][key] = _Rollout(score_fn, (key_ms, query), R, nT, pattern, record,
-                                                       self.bundle.device, self.pool, self.mesh)
+                                                       self.bundle.device, self.pool, self.mesh, name)
         return entry.run(T0, schedule_table(sched, self.bundle.ang_mult, self.bundle.lin_mult), generator)
 
     def energy(self, key_ms, query, T: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -306,7 +310,7 @@ class _BundleRuntime:
             return entry.program()
         dev, model = self.bundle.device, self.bundle.model
         Ts, ones = T.to(dev).clone(), torch.ones(R, nT, device=dev)
-        program = Program(lambda: model.energy(Ts, key_ms, query, ones), dev, self.pool)
+        program = Program(lambda: model.energy(Ts, key_ms, query, ones), dev, self.pool, entry=name, shape=(R, nT))
         self.entries[name][(R, nT)] = _Entry([Ts], program, (key_ms, query))
         return program.out
 
@@ -349,7 +353,9 @@ class DiffusionEdfAgent:
                 self.unrescale *= float(op["kwargs"]["rescale_factor"])
 
     def _prep(self, scene_pcd: PointCloud, grasp_pcd: PointCloud):
-        demo = self.proc_fn(TargetPoseDemo(scene_pcd=scene_pcd, grasp_pcd=grasp_pcd, target_poses=np.zeros((1, 7))))
+        with span("agent.preprocess"):
+            demo = self.proc_fn(TargetPoseDemo(scene_pcd=scene_pcd, grasp_pcd=grasp_pcd,
+                                               target_poses=np.zeros((1, 7))))
         return demo.scene_pcd, demo.grasp_pcd
 
     def sample(
@@ -371,9 +377,11 @@ class DiffusionEdfAgent:
         draws the Langevin noise and must live on the models' device; without
         one, a generator is seeded from ``np.random``.  Returns (trajectory
         (steps + stages, nT, 7) in processed (cm) units, processed scene,
-        processed grasp, info with per-stage host timings).  With a critic the
-        trajectory's pose axis is sorted by the energy of the final poses,
-        ascending, and ``info["energy"]`` holds the sorted energies."""
+        processed grasp, info with per-stage host timings: the durations of
+        the ``agent.extract``, ``agent.rollout`` and ``agent.critic`` spans).
+        With a critic the trajectory's pose axis is sorted by the energy of
+        the final poses, ascending, and ``info["energy"]`` holds the sorted
+        energies."""
         scene_p, grasp_p = self._prep(scene_pcd, grasp_pcd)
         traj, info = self._run([(scene_p, grasp_p)], np.asarray(Ts_init, dtype=np.float32)[None], dict(
             N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
@@ -450,50 +458,54 @@ class DiffusionEdfAgent:
                 temperatures=cfg["temperatures_list"][mi], log_t_schedule=cfg["log_t_schedule"],
                 time_exponent_temp=cfg["time_exponent_temp"], time_exponent_alpha=cfg["time_exponent_alpha"],
             )
-            t0 = time.perf_counter()
+            extract = span("agent.extract", device_work=True, stage=mi)
+            rollout = span("agent.rollout", device_work=True, stage=mi, steps=len(sched.t))
             if self.use_runtime:
                 rt = self._runtimes[mi]
                 with rt.lock:
-                    key_ms, query = rt.extract(preps, batched)
-                    _sync(dev)
-                    t1 = time.perf_counter()
-                    T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory, batched)
-                    T = T.clone()
-                    traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
+                    with extract:
+                        key_ms, query = rt.extract(preps, batched)
+                        _sync(dev)
+                    with rollout:
+                        T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory, batched)
+                        T = T.clone()
+                        traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
+                        _sync(dev)
             else:
-                key_ms, query = self._extract(bundle, preps)
-                _sync(dev)
-                t1 = time.perf_counter()
+                with extract:
+                    key_ms, query = self._extract(bundle, preps)
+                    _sync(dev)
 
                 def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
                     return model.score(Ts, key_ms, query, t)
 
-                if self.mesh is None:
-                    T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
-                                              generator=generator, record_trajectory=record_trajectory)
-                else:
-                    T, traj = sharded_langevin_sample(self.mesh, score_fn, generator, T, sched, bundle.ang_mult,
-                                                      bundle.lin_mult, record_trajectory=record_trajectory)
-                traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
-            _sync(dev)
-            info["extract_s"].append(t1 - t0)
-            info["rollout_s"].append(time.perf_counter() - t1)
+                with rollout:
+                    if self.mesh is None:
+                        T, traj = langevin_sample(score_fn, T, sched, bundle.ang_mult, bundle.lin_mult,
+                                                  generator=generator, record_trajectory=record_trajectory)
+                    else:
+                        T, traj = sharded_langevin_sample(self.mesh, score_fn, generator, T, sched, bundle.ang_mult,
+                                                          bundle.lin_mult, record_trajectory=record_trajectory)
+                    traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
+                    _sync(dev)
+            info["extract_s"].append(extract.seconds)
+            info["rollout_s"].append(rollout.seconds)
             info["steps"].append(len(sched.t))
             trajs.append(traj if record_trajectory else T[:, None].cpu().numpy())
         Ts_out = np.concatenate(trajs, axis=1)  # (R, steps + stages, nT, 7)
         if self.critic is not None:
             c = self.critic
             dev = c.device
-            t0 = time.perf_counter()
-            Tl = torch.as_tensor(np.ascontiguousarray(Ts_out[:, -1]), device=dev)
-            if self.use_runtime:
-                rt = self._critic_runtime
-                with rt.lock:
-                    energy = rt.energy(*rt.extract(preps, batched), Tl, batched).cpu().numpy()
-            else:
-                key_ms, query = self._extract(c, preps)
-                energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
-            info["critic_s"] = time.perf_counter() - t0
+            with span("agent.critic", device_work=True) as critic:
+                Tl = torch.as_tensor(np.ascontiguousarray(Ts_out[:, -1]), device=dev)
+                if self.use_runtime:
+                    rt = self._critic_runtime
+                    with rt.lock:
+                        energy = rt.energy(*rt.extract(preps, batched), Tl, batched).cpu().numpy()
+                else:
+                    key_ms, query = self._extract(c, preps)
+                    energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
+            info["critic_s"] = critic.seconds
             if n_seeds is not None:
                 energy[np.arange(nT)[None, :] >= np.asarray(n_seeds)[:, None]] = np.inf
             order = np.argsort(energy, axis=-1)

@@ -62,6 +62,7 @@ import torch.distributed as dist
 from .nn import edge_kernel as _ek
 from .nn import fused_attention as _fa
 from .parallel.mesh import Mesh, require_capturable
+from .utils.profiling import span
 
 __all__ = ["Program", "launch_counts", "add_launches", "tensors_of", "copy_into", "pool_bytes"]
 
@@ -127,12 +128,18 @@ class Program:
     the kernel launches of one run, ``capture_s`` the seconds of the capture
     (0 on the CPU).  ``generators``: those that ``fn`` draws from;
     ``writes``: the tensors whose version counters a replay bumps;
-    ``mesh``: the mesh whose collectives ``fn`` runs."""
+    ``mesh``: the mesh whose collectives ``fn`` runs; ``entry`` and
+    ``shape`` name the program in its ``graphs.build`` span."""
 
     def __init__(self, fn: Callable[[], Any], device: torch.device, pool: Optional[tuple] = None,
                  generators: Sequence[torch.Generator] = (), writes: Sequence[torch.Tensor] = (),
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, entry: str = "", shape: Any = None):
         require_capturable(mesh, device, "graphs.Program")
+        with span("graphs.build", device_work=True, entry=entry, shape=shape) as build:
+            self._build(fn, device, pool, generators, writes, mesh)
+            build.attrs["capture_s"] = self.capture_s
+
+    def _build(self, fn, device, pool, generators, writes, mesh) -> None:
         self.fn = fn
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.writes = list(writes)

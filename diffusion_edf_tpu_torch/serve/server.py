@@ -18,9 +18,21 @@ unguarded state (the folded weights and tensor-core operands cached on each
 attention, the device tables of ``nn/edge_kernel.py``, the kernels' launch
 counters), so with batching on, only the dispatcher thread calls the agents;
 without it, one lock serialises every agent call.
+
+Spans (``utils/profiling.py``): each ``POST /denoise`` is a
+``serve.request`` span with a request id that the service numbers, and its
+``serve.decode``, ``serve.queue`` and ``serve.encode`` children; each agent
+call is a ``serve.dispatch`` span with its request ids and its real and
+padding requests, above the agent's own spans.  ``batch_stats`` counts the
+real (``batched_requests``) and padding (``padded_requests``) requests of
+the batched dispatches.  To see where a served request's time goes, call
+``profiling.record(True)`` in the server's process, send traffic, and read
+``profiling.drain()``; the spans of host work are host ranges in any
+``profiling.trace`` file.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
@@ -31,6 +43,7 @@ import numpy as np
 
 from ..agent import DiffusionEdfAgent
 from ..train.data import PointCloud
+from ..utils.profiling import span
 from .trajectories import compute_pre_pick_trajectory, compute_pre_place_trajectory
 
 __all__ = ["AgentService", "run_server"]
@@ -39,13 +52,15 @@ __all__ = ["AgentService", "run_server"]
 class _PendingRequest:
     """One enqueued /denoise awaiting the batching dispatcher."""
 
-    __slots__ = ("task", "scene", "grasp", "Ts_init", "event", "result", "error")
+    __slots__ = ("task", "scene", "grasp", "Ts_init", "request", "queue", "event", "result", "error")
 
-    def __init__(self, task, scene, grasp, Ts_init):
+    def __init__(self, task, scene, grasp, Ts_init, request: int, queue: span):
         self.task = task
         self.scene = scene
         self.grasp = grasp
         self.Ts_init = Ts_init
+        self.request = request  # its id
+        self.queue = queue  # its serve.queue span, started
         self.event = threading.Event()
         self.result: Optional[Dict[str, Any]] = None
         self.error: Optional[BaseException] = None
@@ -58,7 +73,10 @@ class AgentService:
     dispatcher thread gathers concurrent same-task ``/denoise`` requests into
     one ``DiffusionEdfAgent.sample_batch`` call (one score evaluation per
     Langevin step for all of them).  Batch sizes are padded up to a power of
-    two (with copies of the first request), as in the JAX service."""
+    two (with copies of the first request), as in the JAX service;
+    ``batch_stats`` counts the dispatches, the requests, and the real
+    (``batched_requests``) and padding (``padded_requests``) requests of
+    the dispatches."""
 
     def __init__(
         self,
@@ -73,7 +91,8 @@ class AgentService:
         self._lock = threading.RLock()
         self._device_lock = threading.Lock()  # every agent call without batching
         self.batching = dict(batching) if batching else None
-        self.batch_stats = {"dispatches": 0, "requests": 0, "batched_requests": 0}
+        self.batch_stats = {"dispatches": 0, "requests": 0, "batched_requests": 0, "padded_requests": 0}
+        self._request_ids = itertools.count(1)
         if self.batching:
             self._queue: List[_PendingRequest] = []
             self._qcv = threading.Condition()
@@ -90,17 +109,25 @@ class AgentService:
             return self.get_configs()
 
     # ------------------------------------------------------------------ #
-    def denoise(self, req: Dict[str, Any]) -> Dict[str, Any]:
+    def request_id(self) -> int:
+        """A new request id (the ``request`` of a request's spans)."""
+        return next(self._request_ids)
+
+    def denoise(self, req: Dict[str, Any], request: Optional[int] = None) -> Dict[str, Any]:
+        """One /denoise request; ``request`` is its id (a new one if None)."""
+        request = self.request_id() if request is None else request
         task = req["task_type"]
         agent = self.agents[task]
         assert agent is not None, f"no agent for task {task}"
-        scene = PointCloud(points=np.asarray(req["scene"]["points"]), colors=np.asarray(req["scene"]["colors"]))
-        grasp = PointCloud(points=np.asarray(req["grasp"]["points"]), colors=np.asarray(req["grasp"]["colors"]))
-        Ts_init = np.asarray(req["Ts_init"], dtype=np.float32)
+        with span("serve.decode", request=request):
+            scene = PointCloud(points=np.asarray(req["scene"]["points"]), colors=np.asarray(req["scene"]["colors"]))
+            grasp = PointCloud(points=np.asarray(req["grasp"]["points"]), colors=np.asarray(req["grasp"]["colors"]))
+            Ts_init = np.asarray(req["Ts_init"], dtype=np.float32)
         with self._lock:
             self.batch_stats["requests"] += 1
+        queue = span("serve.queue", request=request).start()
         if self.batching:
-            pending = _PendingRequest(task, scene, grasp, Ts_init)
+            pending = _PendingRequest(task, scene, grasp, Ts_init, request, queue)
             with self._qcv:
                 self._queue.append(pending)
                 self._qcv.notify()
@@ -110,10 +137,13 @@ class AgentService:
             return pending.result
         cfg = self._diff_cfg(task)
         with self._device_lock:
-            traj, _, _, info = agent.sample(scene, grasp, Ts_init, **cfg)
-        out = {"trajectories": agent.unprocess_poses(traj).tolist()}  # back to metres
-        if "energy" in info:
-            out["energy"] = np.asarray(info["energy"]).tolist()
+            queue.end()
+            with span("serve.dispatch", request=(request,), device_work=True, real=1, padded=0):
+                traj, _, _, info = agent.sample(scene, grasp, Ts_init, **cfg)
+        with span("serve.encode", request=request):
+            out = {"trajectories": agent.unprocess_poses(traj).tolist()}  # back to metres
+            if "energy" in info:
+                out["energy"] = np.asarray(info["energy"]).tolist()
         return out
 
     def _diff_cfg(self, task: str) -> Dict[str, Any]:
@@ -148,6 +178,8 @@ class AgentService:
     def _run_batch(self, batch: List[_PendingRequest]):
         task = batch[0].task
         agent = self.agents[task]
+        for p in batch:
+            p.queue.end()
         try:
             cfg = self._diff_cfg(task)
             # pad seed counts to the batch max (copies of a request's last
@@ -162,17 +194,20 @@ class AgentService:
             scenes = [p.scene for p in batch] + [batch[0].scene] * (R - len(batch))
             grasps = [p.grasp for p in batch] + [batch[0].grasp] * (R - len(batch))
             n_seeds = [p.Ts_init.shape[0] for p in batch] + [nT] * (R - len(batch))
-            traj_b, info = agent.sample_batch(scenes, grasps, Ts, n_seeds=n_seeds, **cfg)
-            traj_m = agent.unprocess_poses(traj_b)  # (R, steps, nT, 7) metres
+            with span("serve.dispatch", request=tuple(p.request for p in batch), device_work=True,
+                      real=len(batch), padded=R - len(batch)):
+                traj_b, info = agent.sample_batch(scenes, grasps, Ts, n_seeds=n_seeds, **cfg)
             with self._lock:
                 self.batch_stats["dispatches"] += 1
                 self.batch_stats["batched_requests"] += len(batch)
+                self.batch_stats["padded_requests"] += R - len(batch)
             for i, p in enumerate(batch):
                 n_i = p.Ts_init.shape[0]
-                out = {"trajectories": traj_m[i][:, :n_i].tolist()}
-                if "energy" in info:
-                    # energy-sorted per request; the padding seeds sort last
-                    out["energy"] = np.asarray(info["energy"])[i][:n_i].tolist()
+                with span("serve.encode", parent=p.queue.parent, request=p.request):
+                    out = {"trajectories": agent.unprocess_poses(traj_b[i][:, :n_i]).tolist()}  # metres
+                    if "energy" in info:
+                        # energy-sorted per request; the padding seeds sort last
+                        out["energy"] = np.asarray(info["energy"])[i][:n_i].tolist()
                 p.result = out
                 p.event.set()
         except BaseException as e:  # noqa: BLE001
@@ -224,13 +259,24 @@ def _make_handler(service: AgentService):
             else:
                 self._send(404, {"error": "unknown endpoint"})
 
+        def _read(self) -> Dict:
+            return json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))) or b"{}")
+
+        def _denoise(self):
+            request = service.request_id()
+            with span("serve.request", request=request, device_work=not service.batching):
+                with span("serve.decode"):
+                    req = self._read()
+                out = service.denoise(req, request)
+                with span("serve.encode"):
+                    self._send(200, out)
+
         def do_POST(self):
-            n = int(self.headers.get("Content-Length", 0))
             try:
-                req = json.loads(self.rfile.read(n) or b"{}")
                 if self.path == "/denoise":
-                    self._send(200, service.denoise(req))
-                elif self.path == "/request_trajectories":
+                    return self._denoise()
+                req = self._read()
+                if self.path == "/request_trajectories":
                     self._send(200, service.request_trajectories(req))
                 elif self.path == "/reconfigure":
                     self._send(200, service.reconfigure(req))

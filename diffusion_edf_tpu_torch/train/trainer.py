@@ -405,7 +405,8 @@ class DiffusionEdfTrainer:
         drawing = [self.generator] + [m.dropout_generator for m in self.model.modules()
                                       if getattr(m, "dropout_generator", None) is not None]
         generators = list({id(g): g for g in drawing}.values())
-        program = Program(fn, self.device, self.pool, generators=generators, writes=self._written(), mesh=mesh)
+        program = Program(fn, self.device, self.pool, generators=generators, writes=self._written(), mesh=mesh,
+                          entry="train_step", shape=key[:2])
         self._entries[key] = _StepEntry(static, program, keys)
         return keys, program.out
 

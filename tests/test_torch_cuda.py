@@ -2,7 +2,8 @@
 masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
 attention kernel) against their plain PyTorch versions on the card, and
 their refusal of autograd (they have no backward); the agent's and the
-trainer's captured CUDA graphs against their eager runs.  This
+trainer's captured CUDA graphs against their eager runs; the recorder's
+spans under the profiler, which leave device time alone.  This
 file imports neither jax nor the JAX package, so it runs on a GPU machine
 without them:
 
@@ -595,3 +596,29 @@ def test_replay_bumps_versions_and_caches_follow(tmp_path):
         scale = float(f.abs().max())
         torch.testing.assert_close(a, f, rtol=0, atol=1e-5 * scale)
         assert float((a - z).abs().max()) > 1e-3 * scale
+
+
+@pytest.mark.cuda
+def test_spans_under_the_profiler_leave_device_time_alone():
+    """Under the profiler a span of host work is a host range only, and a
+    span that encloses device work opens no range: no device event bears a
+    span's name (a ``record_function`` range over kernels has a device twin,
+    which a reading of device events counts as busy time)."""
+    _need_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_edf_tpu_torch.utils.profiling import span
+
+    x = torch.ones(1 << 20, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with span("probe.host"):
+            host = sum(range(1000))
+        with span("probe.device", device_work=True):
+            y = (x * 2).sum()
+            torch.cuda.synchronize()
+    assert host == 499500 and float(y) == 2 * (1 << 20)
+    events = prof.events()
+    assert [e.device_type for e in events if e.name == "probe.host"] == [torch.autograd.DeviceType.CPU]
+    assert not [e for e in events if e.name == "probe.device"]
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in events)  # the kernels are traced

@@ -212,7 +212,7 @@ def test_batched_place_requests_one_dispatch(agents):
             th.join()
     finally:
         httpd.shutdown()
-    assert service.batch_stats == {"dispatches": 1, "requests": 4, "batched_requests": 4}
+    assert service.batch_stats == {"dispatches": 1, "requests": 4, "batched_requests": 4, "padded_requests": 0}
     alone = AgentService(None, agents["place"], dict(place_diffusion_configs=COLD))
     for p, out in zip(payloads, results):
         _check_poses(out["trajectories"], len(p["Ts_init"]))
@@ -237,7 +237,7 @@ def test_batched_padding_seeds_rank_last(agents):
         th.start()
     for th in threads:
         th.join()
-    assert service.batch_stats == {"dispatches": 1, "requests": 2, "batched_requests": 2}
+    assert service.batch_stats == {"dispatches": 1, "requests": 2, "batched_requests": 2, "padded_requests": 0}
     for p, out in zip((small, big), results):
         ref = alone.denoise(p)
         np.testing.assert_allclose(out["trajectories"], ref["trajectories"], atol=1e-6)
