@@ -64,6 +64,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    keypoint) and on seeded weights, whose spread must move the plain
    attention by ``POST_WITNESS_GATE`` of its max when each slot's weight is
    replaced by their mean;
+2f. the transpose of ``tp.apply_dtp_cm``'s constant-table gathers
+   (``csrc/gather.cu``, ``gather_cases``) at the pick train step's shapes
+   against its plain version and against index_select's own backward
+   (zeros + index_add_, the yardstick), each within float32 rounding of a
+   float64 sum; device time of the kernel and of the yardstick, and the
+   bytes bound (of the kept positions: the kernel stages whole rows);
 7. one pick request at the server's full schedule (400 + 500 steps, 20
    seeds) on the default ``edge_impl`` and on ``"fused"``, each timed once;
 8. the whole place request: ``place_lowres`` (100 steps), ``place_highres``
@@ -95,9 +101,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``EVAL_RISE_GATE`` times its start, ms a step, device busy and idle share
    and kernels a step from ``torch.profiler`` over 10 more steps, peak
    memory, and no launch of K1, K2 or K3 while training (autograd routes
-   every attention to the plain path); (c) the ``pick_ebm`` critic, one step
-   card against CPU, then 20 steps (second order through ``ebm_score``, rank
-   loss): finite, pair accuracy, ms a step, peak memory, no launch; (d) the
+   every attention to the plain path) but some of the gather transpose
+   (``nn/gather.py``, in every backward of ``tp.apply_dtp_cm``); (c) the
+   ``pick_ebm`` critic, one step card against CPU, then 20 steps (second
+   order through ``ebm_score``, rank loss): finite, pair accuracy, ms a
+   step, peak memory, launches as in (b); (d) the
    trained ``pick_lowres`` weights exported, loaded by ``load_model_bundle``
    and sampled on the default ``edge_impl`` (K1, once a step) and on
    ``"plain"`` with the same seeds and noise, within ``POSE_GATE``, and the
@@ -112,9 +120,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    optimizer state (their norms), each no farther from the nearest eager
    run than twice the largest difference between two eager runs or
    ``TRAIN_GATES`` (``spread_gate``), the step counts exact, one
-   entry and none new in a second epoch, no launch of K1, K2 or K3; eager
-   against captured ms a step, device busy, idle share, kernels a step,
-   capture seconds, graph pool;
+   entry and none new in a second epoch, no launch of K1, K2 or K3, the
+   gather transpose launched by an eager and by the capturing epoch (its
+   launches in each epoch counted; a replay counts none); eager against
+   captured ms a step, device busy, idle share, kernels a step, capture
+   seconds, graph pool;
 11. evaluation: ``diffusion_edf_tpu_torch.eval.evaluate_agent`` on the
    default ``edge_impl`` with the shipped pick cascade (``pick_lowres`` ->
    ``pick_highres``, critic ``pick_ebm_cascade.npz``) and place cascade
@@ -183,9 +193,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
    max|E|, the executed sample the same wherever the two lowest plain
    energies differ by more than that, launches counted; three fine-tune
    steps (``make_train_step``, dropout on), twice eagerly and once through
-   the tool's compiled step, finite with no launch, the captured steps'
-   losses, parameters and optimizer state held to the eager runs as in
-   10f, eager against captured ms a step, device busy, idle share,
+   the tool's compiled step, finite with no launch of K1, K2 or K3, the
+   captured steps' losses, parameters and optimizer state held to the
+   eager runs as in 10f, eager against captured ms a step, device busy, idle share,
    kernels a step, capture seconds and graph pool; the tool's ``main`` for
    one epoch (its step and held-out energies compiled): the committed
    report's keys, K1 launched by its three evaluations alone, the float16
@@ -222,7 +232,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``by_shape`` holds K1's and K3's records at the pick, place and sapien key
    fields and the keypoint field, ``launches_by_path`` the counts of the
    other paths (per rank on the sharded paths; phase 14's tools by name;
-   ``captured_*`` the runtime's replayed requests of phase 15).
+   ``captured_*`` the runtime's replayed requests of phase 15).  The gather
+   transpose's ``launches`` are those of 10f's capturing ``pick_lowres``
+   epoch, its ``launches_by_path`` those of each training run of phases 10
+   and 14, and ``by_shape`` holds phase 2f.
 
 There is no CPU fallback: without a CUDA device the script exits 1.
 """
@@ -1014,8 +1027,8 @@ def train_phase(dev, scene, grasp) -> dict:
         f"last {summary['pick_lowres_train']['loss_last_epoch']:.4f}; launches during training {during}")
     if not finite:
         raise SmokeFailure("10b: a train loss or gradient norm is not finite")
-    if sum(during.values()) != 0:
-        raise SmokeFailure("10b: a kernel launched during training")
+    if attention_launches(during) != 0 or during["gather_last_t"] == 0:
+        raise SmokeFailure("10b: an attention kernel launched during training, or the gather transpose did not")
     if not after <= EVAL_RISE_GATE * before:
         raise SmokeFailure("10b: the evaluation loss rose during training")
 
@@ -1051,8 +1064,9 @@ def train_phase(dev, scene, grasp) -> dict:
         f"{cstats[-1]['loss/train']:.4f}; launches {during}; {time.perf_counter() - t0:.1f} s")
     if not finite:
         raise SmokeFailure("10c: a critic loss or gradient is not finite")
-    if sum(during.values()) != 0:
-        raise SmokeFailure("10c: a kernel launched during the critic's training")
+    if attention_launches(during) != 0 or during["gather_last_t"] == 0:
+        raise SmokeFailure("10c: an attention kernel launched during the critic's training, or the gather transpose "
+                           "did not")
     del ctr
 
     # ---- 10d: the trained weights served on K1 ----
@@ -1128,8 +1142,8 @@ def train_phase(dev, scene, grasp) -> dict:
     during = counters()
     summary["captured_training_launches"] = during
     log(f"10f: launches while training eagerly and captured {during}")
-    if sum(during.values()) != 0:
-        raise SmokeFailure("10f: a kernel launched during training")
+    if attention_launches(during) != 0:
+        raise SmokeFailure("10f: an attention kernel launched during training")
     return summary
 
 
@@ -1140,7 +1154,8 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
     parameters, EMA and optimizer state held to the eager runs
     (``spread_gate``), every step count the steps taken, a second captured
     epoch with no new entry; ms a step, device busy, idle share, kernels a
-    step, capture seconds and the graph pool."""
+    step, capture seconds and the graph pool; the gather transpose's
+    launches in each epoch (a capture counts its launches, a replay none)."""
     import torch
 
     from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
@@ -1157,9 +1172,10 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
         if start is None:
             start = dict(params=[p.detach().clone() for p in tr.params], ema=[e.clone() for e in tr.ema])
         torch.cuda.synchronize()
+        g0 = counters()["gather_last_t"]
         t0 = time.perf_counter()
         tr.train_epoch()  # its statistics are read at its end: synchronised
-        rec = dict(epoch_s=time.perf_counter() - t0)
+        rec = dict(epoch_s=time.perf_counter() - t0, gather_launches=counters()["gather_last_t"] - g0)
         with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
             rec["state"] = dict(loss=[json.loads(line)["loss/train"] for line in f],
                                 params=[p.detach().clone() for p in tr.params],
@@ -1168,10 +1184,12 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
         rec["count"] = int(tr.optimizer.count)
         if captured:
             entries = tr.cache_size()
+            g0 = counters()["gather_last_t"]
             t0 = time.perf_counter()
             tr.train_epoch()
             rec.update(replay_epoch_s=time.perf_counter() - t0, entries=entries, entries_after=tr.cache_size(),
-                       capture_s=tr.capture_s(), pool_gb=tr.pool_bytes() / 1e9)
+                       capture_s=tr.capture_s(), pool_gb=tr.pool_bytes() / 1e9,
+                       replay_gather_launches=counters()["gather_last_t"] - g0)
         if captured or i == TRAIN_EAGER_RUNS - 1:
             rec["busy_ms"], rec["kernels"] = train_profile(trainer_step(tr), steps=2)
         runs.append(rec)
@@ -1187,17 +1205,22 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
                eager_busy_ms=busy_e, captured_busy_ms=cap["busy_ms"], eager_idle=1 - busy_e / ms_eager,
                captured_idle=1 - cap["busy_ms"] / ms_cap, eager_kernels=eager[-1]["kernels"],
                captured_kernels=cap["kernels"], capture_s=cap["capture_s"], pool_gb=cap["pool_gb"],
-               entries=cap["entries"], **gate)
+               entries=cap["entries"], gather_launches=dict(eager_epoch=eager[-1]["gather_launches"],
+                                                            capturing_epoch=cap["gather_launches"],
+                                                            replayed_epoch=cap["replay_gather_launches"]), **gate)
     log(f"10f: {name} ({n_demos} demos, one epoch): eager {ms_eager:.1f} ms a step (median of {TRAIN_EAGER_RUNS} "
         f"epochs), busy {busy_e:.2f}, idle {out['eager_idle']:.3f}, {eager[-1]['kernels']:.0f} kernels; captured "
         f"{ms_cap:.1f} ms (the replayed epoch; capturing epoch {out['capturing_epoch_ms']:.1f}), busy "
         f"{cap['busy_ms']:.2f}, idle {out['captured_idle']:.3f}, {cap['kernels']:.0f} kernels; capture "
         f"{cap['capture_s']:.2f} s, graph pool {cap['pool_gb']:.2f} GB; entries {cap['entries']}, after a second "
-        f"epoch {cap['entries_after']}; {time.perf_counter() - t_case:.1f} s")
+        f"epoch {cap['entries_after']}; gather_last_t launches {out['gather_launches']}; "
+        f"{time.perf_counter() - t_case:.1f} s")
     if cap["entries_after"] != cap["entries"] or cap["entries"] != 1:
         raise SmokeFailure(f"10f: {name}: the second epoch made a new entry, or the demos made more than one")
     if [r["count"] for r in runs] != [n_demos] * len(runs):
         raise SmokeFailure(f"10f: {name}: the optimizer's step counts are not the steps taken")
+    if not (out["gather_launches"]["eager_epoch"] and out["gather_launches"]["capturing_epoch"]):
+        raise SmokeFailure(f"10f: {name}: an eager or the capturing epoch did not launch the gather transpose")
     return out
 
 
@@ -1295,6 +1318,68 @@ def eval_phase(dev) -> dict:
         del agent, bundles
         torch.cuda.empty_cache()
     return summary
+
+
+# phase 2f: (in1 irreps, table, rows) of the gathers whose transpose the pick train step takes most time in, and
+# the coefficient table, whose zero column's segment is empty (the card tests' cases)
+GATHER_CASES = (("32x0e+16x1e+8x2e", "X", 26240), ("64x0e+32x1e+16x2e", "X", 4680), ("32x0e+16x1e+8x2e", "W", 16400),
+                ("32x0e+16x1e+8x2e", "C", 2048))
+
+
+def gather_cases(dev) -> dict:
+    """Phase 2f: the gather transpose (``nn/gather.py``) at ``GATHER_CASES``
+    on random gradients, 0 at the positions the table leaves out as
+    ``tp.apply_dtp_cm`` hands them: the kernel and its plain version each
+    within (terms + 1) units of 2^-24 of the float64 sum of |terms| of the
+    exact sum, as is index_select's own backward (zeros + index_add_); the
+    kernel's and that backward's device time, the plain version's (CUDA
+    events) and the bound: each byte of the gradient that the sum uses
+    read once (the kept positions: the left-out ones come in runs of at
+    least a multiplicity's lanes, so a kernel need not read them), of the
+    output written once, and of the table read once.  The kernel stages
+    whole rows, so it reads ``P / kept`` times the bytes it uses.
+    Returns {shape label: record}."""
+    import torch
+
+    from diffusion_edf_tpu_torch.geom.irreps import Irreps
+    from diffusion_edf_tpu_torch.nn import gather, tp
+
+    g_gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for irreps, which, rows in GATHER_CASES:
+        prog = tp.dtp_instructions(Irreps(irreps), Irreps("1x0e+1x1e+1x2e"), Irreps(irreps))
+        table = dict(zip("XCW", tp.cm_tables(prog, False, torch.zeros(0, device=dev))))[which]
+        P = table.idx.shape[0]
+        kept = torch.zeros(P, dtype=torch.bool, device=dev)
+        kept[table.lanes.long()] = True
+        g = torch.randn(rows, P, generator=g_gen, device=dev) * kept  # as apply_dtp_cm hands it: 0 where left out
+        zeros = torch.zeros(rows, table.width, dtype=torch.float64, device=dev)
+        exact = zeros.clone().index_add_(-1, table.idx, g.double())
+        tol = ((table.ptr[1:] - table.ptr[:-1] + 1).double() * 2.0**-24
+               * zeros.clone().index_add_(-1, table.idx, g.double().abs()))
+        with torch.no_grad():
+            results = dict(kernel=gather.gather_last_t(g, table), plain=gather.gather_last_t_plain(g, table),
+                           library=torch.zeros(rows, table.width, device=dev).index_add_(-1, table.idx, g))
+        excess = {k: float(((v.double() - exact).abs() - tol).max()) for k, v in results.items()}
+        err = float((results["kernel"].double() - exact).abs().max())
+        label = f"{rows}x{P}->{table.width}"
+        if max(excess.values()) > 0:
+            raise SmokeFailure(f"2f: {label}: beyond float32 rounding of the exact sum by {excess}")
+        n_kept = table.lanes.numel()
+        nbytes = 4 * rows * (n_kept + table.width) + 4 * (table.ptr.numel() + n_kept)
+        rec = dict(rows=rows, positions=P, kept=n_kept, width=table.width, ms=device_ms(lambda: gather.gather_last_t(g, table)),
+                   bound_ms=bound(0.0, nbytes)[0], plain_ms=cuda_ms(lambda: gather.gather_last_t_plain(g, table)),
+                   library_ms=device_ms(lambda: torch.zeros(rows, table.width, device=dev).index_add_(
+                       -1, table.idx, g)), max_abs_err=err)
+        rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
+        log(f"2f: gather_last_t {label} ({irreps} {which}, {n_kept} positions kept): kernel {rec['ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} "
+            f"({rec['roofline_pct']:.1f} %), zeros + index_add_ {rec['library_ms']:.4f}, plain {rec['plain_ms']:.4f}; "
+            f"max-abs err {err:.3g}")
+        out[label] = rec
+        del g, zeros, exact, tol, results
+    torch.cuda.empty_cache()
+    return out
 
 
 def sapien_inputs(dev, seeded: bool = False):
@@ -1412,7 +1497,7 @@ def sapien_phase(dev) -> dict:
     if not all(np.isfinite(r[0]).all() for r in runs.values()) or max(drift.values()) > POSE_GATE:
         raise SmokeFailure("12a: a sapien kernel rollout drifts from the plain rollout")
     k, f, p = (runs[i][2] for i in ("kernel", "fused", "plain"))
-    if (k["edge_kernel"], k["fused_attention"], f["fused_attention"], f["edge_kernel"], sum(p.values())) != (
+    if (k["edge_kernel"], k["fused_attention"], f["fused_attention"], f["edge_kernel"], attention_launches(p)) != (
             expected, 0, expected, 0, 0):
         raise SmokeFailure("12a: the sapien stage did not run through the expected kernels")
     del runs, bundle, model
@@ -1933,7 +2018,7 @@ def critic_phase(dev, dumps) -> dict:
     if decisive and not all(same_exec.values()):
         raise SmokeFailure("14b: a kernel path executes another sample than plain")
     k, f, p = launched["kernel"], launched["fused"], launched["plain"]
-    if (k["edge_kernel"], k["fused_attention"], f["fused_attention"], f["edge_kernel"], sum(p.values())) != (
+    if (k["edge_kernel"], k["fused_attention"], f["fused_attention"], f["edge_kernel"], attention_launches(p)) != (
             per_demo, 0, per_demo, 0, 0):
         raise SmokeFailure("14b: the critic's energies did not run through the expected kernels")
 
@@ -1978,8 +2063,8 @@ def critic_phase(dev, dumps) -> dict:
         f"launches {train_launches}")
     gate = spread_gate("14b: the fine-tune steps", [r["state"] for r in eager], cap["state"],
                        train_floor(eager[0]["state"], start))
-    if not np.isfinite(losses).all() or sum(train_launches.values()):
-        raise SmokeFailure("14b: a fine-tune step is not finite or launched a kernel")
+    if not np.isfinite(losses).all() or attention_launches(train_launches):
+        raise SmokeFailure("14b: a fine-tune step is not finite or launched an attention kernel")
 
     # the tool's main: one epoch on the one-demo train dump; evaluations at epoch 0, 1 and on the best
     report_path, export = os.path.join(TOOLS_DIR, "critic_cascade_pick.json"), os.path.join(TOOLS_DIR, "critic.npz")
@@ -2005,7 +2090,7 @@ def critic_phase(dev, dumps) -> dict:
     if not (keys_equal and f16) or main_launches["edge_kernel"] != 3 * per_demo:
         raise SmokeFailure("14b: the critic export or its evaluations are not as the JAX tool's")
     return dict(rel_energy_err={k: v / scale for k, v in errs.items()}, energy_launches=launched,
-                step_ms=ms, losses=losses, main_s=main_s, main_launches=main_launches,
+                step_ms=ms, losses=losses, train_launches=train_launches, main_s=main_s, main_launches=main_launches,
                 epoch0=report["epochs"][0], eager_ms=ms_e, captured_ms=ms_c, eager_busy_ms=eager[-1]["busy_ms"],
                 captured_busy_ms=cap["busy_ms"], eager_kernels=eager[-1]["kernels"], captured_kernels=cap["kernels"],
                 capture_s=cap["capture_s"], pool_gb=cap["pool_gb"], **gate)
@@ -2379,15 +2464,25 @@ def runtime_phase(dev, bundle, scene, grasp, pbundles, pre_unpre, pscene, pgrasp
 def reset_counters() -> None:
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
+    from diffusion_edf_tpu_torch.nn import gather
 
-    ek.launches = ek.launches_bf16 = fa.launches = 0
+    ek.launches = ek.launches_bf16 = fa.launches = gather.launches = 0
 
 
 def counters() -> dict:
     from diffusion_edf_tpu_torch.nn import edge_kernel as ek
     from diffusion_edf_tpu_torch.nn import fused_attention as fa
+    from diffusion_edf_tpu_torch.nn import gather
 
-    return dict(edge_kernel=ek.launches, edge_kernel_bf16=ek.launches_bf16, fused_attention=fa.launches)
+    return dict(edge_kernel=ek.launches, edge_kernel_bf16=ek.launches_bf16, fused_attention=fa.launches,
+                gather_last_t=gather.launches)
+
+
+def attention_launches(launched: dict) -> int:
+    """The launches of the edge attention's kernels (K1, K2, K3) in a
+    ``counters()`` reading: none of them has a backward, so training runs
+    none; the gather transpose runs in every backward."""
+    return launched["edge_kernel"] + launched["edge_kernel_bf16"] + launched["fused_attention"]
 
 
 def main() -> int:
@@ -2595,6 +2690,9 @@ def run() -> int:
     for label, (rec1, rec3) in sapien_cases.items():
         k1[label], k3[label] = rec1, rec3
     max_err, k3_err = max(max_err, err), max(k3_err, err3)
+
+    # ---- phase 2f: the transpose of the tensor product's gathers at the pick train step's shapes ----
+    gathers = gather_cases(dev)
 
     # ---- phase 3: the first path, one pick_lowres stage on the default edge_impl ----
     Ts_init = seed_poses(N_SEEDS)
@@ -3056,6 +3154,18 @@ def run() -> int:
                  query_sharded_score_by_rank=multi["sharded_score"]["query_fused"]["launches"],
                  critic_cascade_eval=tools["critic"]["energy_launches"]["fused"]["fused_attention"]),
              by_shape={n: k3[n] for n in shapes}, **k3["tensor_field"]),
+        # no TPU kernel: the JAX package leaves the backward of its gathers to XLA.  Its path is training: the
+        # launches of the captured pick_lowres epoch (its capture; the replays count none), and beside them those
+        # of every other training run, each read from that run alone
+        dict(name="gather_last_t", route="cuda", source=src + "gather.cu", replaces=None,
+             launches=train["pick_lowres_captured"]["gather_launches"]["capturing_epoch"],
+             launches_by_path=dict(
+                 captured_train_epoch={n: train[f"{n}_captured"]["gather_launches"] for n, _ in TRAIN_RUNTIME_CASES},
+                 pick_lowres_train=train["pick_lowres_train"]["launches"]["gather_last_t"],
+                 pick_ebm_train=train["pick_ebm_train"]["launches"]["gather_last_t"],
+                 critic_finetune=tools["critic"]["train_launches"]["gather_last_t"],
+                 train_eval_loop=tools["loop"]["launches"]["gather_last_t"]),
+             by_shape=gathers),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,7 +22,7 @@ __all__ = ["SOURCES", "build_all", "load_library", "load_variants", "build_logs"
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("edge_kernel", "fused_attention")
+SOURCES = ("edge_kernel", "fused_attention", "gather")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas -v) per source built by this process

@@ -25,6 +25,7 @@ import torch
 
 from ..geom.cg import w3j
 from ..geom.irreps import Irrep, Irreps, sort_irreps_even_first
+from .gather import GatherTable, gather_last, gather_table
 from .util import constant
 
 __all__ = [
@@ -36,6 +37,7 @@ __all__ = [
     "apply_dtp_cm",
     "apply_fctp",
     "cm_eligible",
+    "cm_tables",
     "cm_input_perm",
     "im_perm",
 ]
@@ -223,6 +225,30 @@ def _cm_gather(prog: TPProgram, x1_component_major: bool):
     return X, C, np.asarray([w for _, w in lanes], dtype=np.int64)
 
 
+def cm_tables(prog: TPProgram, x1_component_major: bool, like: torch.Tensor) -> Tuple[GatherTable, ...]:
+    """The tables of :func:`_cm_gather` as :mod:`.gather` tables on ``like``'s
+    device: ``X`` over x1's lanes, ``C`` over the columns of ``A`` and its
+    zero column ``nA``, ``W`` over the weight lanes.  The positions of the
+    missing terms (x1's lane 0 times the zero column) are left out of the
+    transposes of ``X`` and ``C``: the gradient they carry to x1 is a
+    product with the zero column, 0, and the zero column's own gradient is
+    discarded by pad's backward.  They are some 60 % of the positions, and
+    kept in, they would make lane 0's and the zero column's segments over
+    a hundred times as long as the others.  So ``X`` and ``C`` are
+    ``partial`` tables (:mod:`.gather`), right only where A's last column
+    is that zero column and pad's backward discards its gradient, as in
+    :func:`apply_dtp_cm`; ``W`` is full."""
+    key = (prog, x1_component_major)
+    nA = _cm_meta(prog)[1].shape[1]
+
+    def present():
+        return _cm_gather(*key)[1] != nA
+
+    spec = (("X", prog.irreps_in1.dim, present), ("C", nA + 1, present), ("W", prog.weight_numel, None))
+    return tuple(gather_table(("cm_gather", name) + key, lambda i=i: _cm_gather(*key)[i], width, like, keep)
+                 for i, (name, width, keep) in enumerate(spec))
+
+
 def apply_dtp_cm(
     prog: TPProgram,
     x1: torch.Tensor,
@@ -239,19 +265,18 @@ def apply_dtp_cm(
     terms of all lanes are gathered at once, so the op count does not grow
     with the number of paths (it matters under autograd, where every op has
     a backward)."""
-    key = (prog, x1_component_major)
-    X, C, W = (constant(("cm_gather", name) + key, lambda i=i: _cm_gather(*key)[i].reshape(-1), x1, dtype=torch.long)
-               for i, name in enumerate("XCW"))
-    n = X.shape[0] // W.shape[0]
+    X, C, W = cm_tables(prog, x1_component_major, x1)
+    n = X.idx.shape[0] // W.idx.shape[0]
     A = x2 @ constant(("cm_C_all", prog), lambda: _cm_meta(prog)[1], x2)  # (..., nA)
     A = torch.nn.functional.pad(A, (0, 1))  # the zero column of missing terms
-    # index_select, whose backward is an index_add (advanced indexing's sorts its indices on CUDA)
-    prod = torch.index_select(x1, -1, X) * torch.index_select(A, -1, C)  # (..., n * L), term-major
-    terms = prod.reshape(*prod.shape[:-1], n, W.shape[0]).unbind(-2)
+    # index_select forward; the backward sums each column's readers over the table's CSR (nn/gather.py), not
+    # index_select's own atomic index_add
+    prod = gather_last(x1, X) * gather_last(A, C)  # (..., n * L), term-major
+    terms = prod.reshape(*prod.shape[:-1], n, W.idx.shape[0]).unbind(-2)
     acc = terms[0]
     for term in terms[1:]:
         acc = acc + term
-    return acc * torch.index_select(weight, -1, W)
+    return acc * gather_last(weight, W)
 
 
 def _blocks(irreps: Irreps, f: torch.Tensor) -> List[torch.Tensor]:

@@ -1,11 +1,12 @@
 """The hand-written CUDA kernels (the edge kernel in float32, unmasked and at
 masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
 attention kernel) against their plain PyTorch versions on the card, and
-their refusal of autograd (they have no backward); the agent's and the
-trainer's captured CUDA graphs against their eager runs; the recorder's
-spans under the profiler, which leave device time alone.  This
-file imports neither jax nor the JAX package, so it runs on a GPU machine
-without them:
+their refusal of autograd (they have no backward); the transpose of the
+tensor product's gathers against index_select's own backward, in a CUDA
+graph and in a train step; the agent's and the trainer's captured CUDA
+graphs against their eager runs; the recorder's spans under the profiler,
+which leave device time alone.  This file imports neither jax nor the JAX
+package, so it runs on a GPU machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -622,3 +623,116 @@ def test_spans_under_the_profiler_leave_device_time_alone():
     assert [e.device_type for e in events if e.name == "probe.host"] == [torch.autograd.DeviceType.CPU]
     assert not [e for e in events if e.name == "probe.device"]
     assert any(e.device_type == torch.autograd.DeviceType.CUDA for e in events)  # the kernels are traced
+
+
+# ---- the transpose of apply_dtp_cm's constant-table gathers (csrc/gather.cu) ----
+
+GATHER_CASES = [  # (in1 irreps, table, rows): the pick train step's shapes, and the coefficient table
+    ("32x0e+16x1e+8x2e", "X", 26240),  # (26240, 3920) -> 120
+    ("64x0e+32x1e+16x2e", "X", 4680),  # (4680, 7840) -> 240
+    ("32x0e+16x1e+8x2e", "W", 16400),  # (16400, 784) -> 240
+    ("32x0e+16x1e+8x2e", "C", 2048),  # (2048, 3920) -> 130, the zero column's segment empty
+]
+
+
+def _gather_table(irreps, which):
+    from diffusion_edf_tpu_torch.nn import tp
+
+    prog = tp.dtp_instructions(tp.Irreps(irreps), tp.Irreps(SH), tp.Irreps(irreps))
+    return dict(zip("XCW", tp.cm_tables(prog, False, torch.zeros(0, device="cuda"))))[which]
+
+
+def _kept(table):
+    kept = torch.zeros(table.idx.shape[0], dtype=torch.bool, device=table.idx.device)
+    kept[table.lanes.long()] = True
+    return kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("irreps,which,rows", GATHER_CASES)
+def test_gather_kernel_matches_index_add(irreps, which, rows):
+    """The kernel against index_select's own backward (zeros + index_add_)
+    of the gradient as apply_dtp_cm hands it (0 at the positions the table
+    leaves out), both within float32 rounding of the float64 sum: per
+    column, (terms + 1) units of 2^-24 of the sum of |terms|.  The kernel
+    sums the kept positions only, and a second launch is bit-equal."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather
+
+    table = _gather_table(irreps, which)
+    g = torch.randn(rows, table.idx.shape[0], generator=torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    before = gather.launches
+    out = gather.gather_last_t(g, table)  # the left-out positions hold noise here: not summed
+    again = gather.gather_last_t(g, table)
+    assert gather.launches - before == 2
+    assert torch.equal(out, again)
+    g = g * _kept(table)
+    zeros = torch.zeros(rows, table.width, dtype=torch.float64, device="cuda")
+    ref = torch.zeros(rows, table.width, device="cuda").index_add_(-1, table.idx, g)
+    exact = zeros.clone().index_add_(-1, table.idx, g.double())
+    tol = (table.ptr[1:] - table.ptr[:-1] + 1).double() * 2.0**-24 * zeros.index_add_(-1, table.idx, g.double().abs())
+    assert bool(((out.double() - exact).abs() <= tol).all())
+    assert bool(((ref.double() - exact).abs() <= tol).all())
+    if which == "C":
+        assert torch.equal(out[:, -1], torch.zeros_like(out[:, -1]))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_replays_in_a_cuda_graph():
+    """A launch captured in a CUDA graph and replayed on new contents of its
+    static input equals the eager launch on the same contents, bit for
+    bit; the capture counts one launch and the replays none."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather
+
+    table = _gather_table("32x0e+16x1e+8x2e", "X")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    static = torch.randn(777, table.idx.shape[0], generator=gen, device="cuda")
+    gather.gather_last_t(static, table)  # built and launched once outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = gather.launches
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        out = gather.gather_last_t(static, table)
+    assert gather.launches - before == 1
+    for _ in range(2):
+        static.copy_(torch.randn(static.shape, generator=gen, device="cuda"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gather.gather_last_t(static, table))
+    assert gather.launches - before == 3  # the two eager launches of the loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ebm", [False, True], ids=["score", "critic"])
+def test_train_step_launches_the_gather_kernel(tmp_path, ebm):
+    """An eager train step on the card launches the kernel at least once for
+    every apply_dtp_cm call (the backward of each call's gathers, and for
+    the critic the second order); the key field's extraction under no_grad
+    on the plain path calls apply_dtp_cm and launches nothing."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather, tp_modules
+
+    calls = [0]
+    original = tp_modules.apply_dtp_cm
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return original(*args, **kwargs)
+
+    tr = _tiny_trainer(tmp_path, ebm, False, "gather")
+    b = tr.batches[0]
+    tp_modules.apply_dtp_cm = counted
+    try:
+        before = gather.launches
+        tr.step(b)
+        torch.cuda.synchronize()
+        assert calls[0] > 0 and gather.launches - before >= calls[0]
+        calls[0], before = 0, gather.launches
+        tr.model.set_edge_impl("plain")
+        with torch.no_grad():
+            tr.model.get_key_pcd_multiscale(b.scene)
+        assert calls[0] > 0 and gather.launches == before
+    finally:
+        tp_modules.apply_dtp_cm = original
