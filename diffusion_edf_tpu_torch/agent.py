@@ -109,6 +109,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _kept_points(key_ms: Sequence[FeaturedPoints]) -> int:
+    """The points the key clouds keep (their masks), summed over scales and
+    requests: one read of the device."""
+    return int(torch.stack([k.mask.sum() for k in key_ms]).sum())
+
+
 ENTRY_POINTS = ("extract_key", "extract_query", "rollout", "energy",
                 "extract_key_b", "extract_query_b", "rollout_b", "energy_b")
 
@@ -378,7 +384,8 @@ class DiffusionEdfAgent:
         one, a generator is seeded from ``np.random``.  Returns (trajectory
         (steps + stages, nT, 7) in processed (cm) units, processed scene,
         processed grasp, info with per-stage host timings: the durations of
-        the ``agent.extract``, ``agent.rollout`` and ``agent.critic`` spans).
+        the ``agent.extract``, ``agent.rollout`` and ``agent.critic`` spans;
+        and ``info["key_points"]``, each stage's kept key points).
         With a critic the trajectory's pose axis is sorted by the energy of
         the final poses, ascending, and ``info["energy"]`` holds the sorted
         energies."""
@@ -444,7 +451,7 @@ class DiffusionEdfAgent:
         R, nT = Ts_init.shape[:2]
         pose_scale = 1.0 / self.unrescale if self.unrescale != 1.0 else 1.0
         T0 = np.concatenate([Ts_init[..., :4], Ts_init[..., 4:] * np.float32(pose_scale)], axis=-1)
-        info: Dict[str, Any] = {"extract_s": [], "rollout_s": [], "steps": []}
+        info: Dict[str, Any] = {"extract_s": [], "key_points": [], "rollout_s": [], "steps": []}
         trajs = []
         T = None
         for mi, bundle in enumerate(self.models):
@@ -458,7 +465,7 @@ class DiffusionEdfAgent:
                 temperatures=cfg["temperatures_list"][mi], log_t_schedule=cfg["log_t_schedule"],
                 time_exponent_temp=cfg["time_exponent_temp"], time_exponent_alpha=cfg["time_exponent_alpha"],
             )
-            extract = span("agent.extract", device_work=True, stage=mi)
+            extract = span("agent.extract", device_work=True, stage=mi, model=type(model).__name__)
             rollout = span("agent.rollout", device_work=True, stage=mi, steps=len(sched.t))
             if self.use_runtime:
                 rt = self._runtimes[mi]
@@ -466,6 +473,7 @@ class DiffusionEdfAgent:
                     with extract:
                         key_ms, query = rt.extract(preps, batched)
                         _sync(dev)
+                        extract.attrs["key_points"] = _kept_points(key_ms)
                     with rollout:
                         T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory, batched)
                         T = T.clone()
@@ -475,6 +483,7 @@ class DiffusionEdfAgent:
                 with extract:
                     key_ms, query = self._extract(bundle, preps)
                     _sync(dev)
+                    extract.attrs["key_points"] = _kept_points(key_ms)
 
                 def score_fn(Ts, t, model=model, key_ms=key_ms, query=query):
                     return model.score(Ts, key_ms, query, t)
@@ -489,6 +498,7 @@ class DiffusionEdfAgent:
                     traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
                     _sync(dev)
             info["extract_s"].append(extract.seconds)
+            info["key_points"].append(extract.attrs["key_points"])
             info["rollout_s"].append(rollout.seconds)
             info["steps"].append(len(sched.t))
             trajs.append(traj if record_trajectory else T[:, None].cpu().numpy())
@@ -532,6 +542,8 @@ class DiffusionEdfAgent:
         self.sample(scene_pcd, grasp_pcd, Ts, record_trajectory=record_trajectory, **cfg)
 
     def unprocess_poses(self, Ts: np.ndarray) -> np.ndarray:
-        """cm -> metres on the translation part."""
-        Ts = np.asarray(Ts)
+        """cm -> metres on the translation part, in float64: metres scaled
+        back to centimetres give the float32 poses the program computed
+        exactly (a float32 product rounds a quarter of them by an ulp)."""
+        Ts = np.asarray(Ts, dtype=np.float64)
         return np.concatenate([Ts[..., :4], Ts[..., 4:] * self.unrescale], axis=-1)

@@ -53,7 +53,9 @@ The spans (the metric each feeds, in ``PERF.md``):
 - ``serve.dispatch``: one agent call, ``request`` its request ids,
   ``real`` and ``padded`` its real and padding requests;
 - ``agent.preprocess`` (a request: host work), ``agent.extract`` and
-  ``agent.rollout`` (a cascade stage; the rollout's ``steps``) and
+  ``agent.rollout`` (a cascade stage; the extraction's ``model``, the score
+  model's class, and ``key_points``, the points its key clouds keep summed
+  over scales and requests; the rollout's ``steps``) and
   ``agent.critic``: the extraction, rollout and critic each end
   synchronised;
 - ``graphs.build``: one ``Program``'s eager first run and capture, with its

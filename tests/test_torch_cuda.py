@@ -736,3 +736,58 @@ def test_train_step_launches_the_gather_kernel(tmp_path, ebm):
         assert calls[0] > 0 and gather.launches == before
     finally:
         tp_modules.apply_dtp_cm = original
+
+
+# ---- the sapien pick cascade (benchmark/configs/sapien_pick.json) through the runtime against eager ----
+
+
+@pytest.mark.cuda
+def test_sapien_cascade_replays_equal_eager_on_two_scenes(tmp_path):
+    """The benchmark's sapien pick cascade at its published widths (a short
+    schedule, 8 seeds): two requests on different scenes through the
+    runtime (the first builds and captures every entry, the second replays
+    them) against the same models run eagerly, to the bit, with equal K1
+    launches, K1 launched on every lowres step, and the second scene's own
+    keypoint weights in the graphs' key cloud.  A graph that kept the
+    warm-up's keypoints or weights would answer the second scene with the
+    first one's."""
+    _need_cuda()
+    import json
+    import os
+
+    import numpy as np
+
+    from benchmark.harness import port, traffic
+    from diffusion_edf_tpu_torch.agent import DiffusionEdfAgent
+    from diffusion_edf_tpu_torch.graphs import launch_counts
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "sapien_pick.json")) as f:
+        cfg = json.load(f)
+    dc = dict(cfg["diffusion_configs"], N_steps_list=[[6, 4], [4, 4]])
+    with open(os.path.join(root, "benchmark", "traffic", "sapien_pick_serve.json")) as f:
+        mix = dict(json.load(f), seeds_per_request=8)
+    agent = port.build_agent(cfg, str(tmp_path), root, "cuda")
+    prep = cfg["preprocess"]
+    eager = DiffusionEdfAgent(agent.models, prep["preprocess_config"], prep["unprocess_config"], use_runtime=False)
+    weights, sizes = [], None
+    for k in range(2):
+        scene, grasp, Ts = traffic.request(mix, 2**31 + 7, 0, k)
+        runs = {}
+        for a in (agent, eager):
+            before = launch_counts()
+            traj, _, _, info = a.sample(scene, grasp, Ts, generator=_gen(11 + k), **dc)
+            torch.cuda.synchronize()
+            runs[a is agent] = traj, tuple(x - y for x, y in zip(launch_counts(), before)), info
+        (traj, launched, info), (etraj, elaunched, einfo) = runs[True], runs[False]
+        assert np.array_equal(traj, etraj) and np.abs(traj[-1] - traj[0]).max() > 1e-3
+        assert launched == elaunched and launched[0] >= sum(dc["N_steps_list"][0])
+        assert info["key_points"] == einfo["key_points"] and info["key_points"][0] > 0
+        (entry,) = agent._runtimes[0].entries["extract_key"].values()
+        key = entry.program.out[0]
+        weights.append(key.w[key.mask].cpu())
+        if k == 0:
+            sizes = [rt.cache_sizes() for rt in agent._runtimes]
+    assert [rt.cache_sizes() for rt in agent._runtimes] == sizes  # the second request replayed only
+    assert float(weights[0].max() - weights[0].min()) > 0.05  # seeded weights that spread
+    assert not torch.equal(weights[0], weights[1])
