@@ -64,12 +64,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    keypoint) and on seeded weights, whose spread must move the plain
    attention by ``POST_WITNESS_GATE`` of its max when each slot's weight is
    replaced by their mean;
-2f. the transpose of ``tp.apply_dtp_cm``'s constant-table gathers
-   (``csrc/gather.cu``, ``gather_cases``) at the pick train step's shapes
-   against its plain version and against index_select's own backward
-   (zeros + index_add_, the yardstick), each within float32 rounding of a
+2f. the transpose of ``tp.apply_dtp_cm``'s and ``IrrepsLinear``'s
+   constant-table gathers (``csrc/gather.cu``, ``gather_cases``) at the
+   pick train step's shapes against its plain version and against
+   index_select's own backward (zeros + index_add_, the yardstick, on the
+   gradient as the caller hands it), each within float32 rounding of a
    float64 sum; device time of the kernel and of the yardstick, and the
-   bytes bound (of the kept positions: the kernel stages whole rows);
+   bytes bound (of the kept positions, the only ones the kernel reads);
 7. one pick request at the server's full schedule (400 + 500 steps, 20
    seeds) on the default ``edge_impl`` and on ``"fused"``, each timed once;
 8. the whole place request: ``place_lowres`` (100 steps), ``place_highres``
@@ -1213,7 +1214,8 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
         f"{ms_cap:.1f} ms (the replayed epoch; capturing epoch {out['capturing_epoch_ms']:.1f}), busy "
         f"{cap['busy_ms']:.2f}, idle {out['captured_idle']:.3f}, {cap['kernels']:.0f} kernels; capture "
         f"{cap['capture_s']:.2f} s, graph pool {cap['pool_gb']:.2f} GB; entries {cap['entries']}, after a second "
-        f"epoch {cap['entries_after']}; gather_last_t launches {out['gather_launches']}; "
+        f"epoch {cap['entries_after']}; gather_last_t launches {out['gather_launches']} "
+        f"({out['gather_launches']['eager_epoch'] / n_demos:.1f} a step eagerly); "
         f"{time.perf_counter() - t_case:.1f} s")
     if cap["entries_after"] != cap["entries"] or cap["entries"] != 1:
         raise SmokeFailure(f"10f: {name}: the second epoch made a new entry, or the demos made more than one")
@@ -1324,55 +1326,75 @@ def eval_phase(dev) -> dict:
 # the coefficient table, whose zero column's segment is empty (the card tests' cases)
 GATHER_CASES = (("32x0e+16x1e+8x2e", "X", 26240), ("64x0e+32x1e+16x2e", "X", 4680), ("32x0e+16x1e+8x2e", "W", 16400),
                 ("32x0e+16x1e+8x2e", "C", 2048))
+# and (irreps in, irreps out) of pick_lowres's linear layers, whose weight assemblies are single rows: the
+# largest (the attention's sep_alpha_value, 10 a step), a middle one (a block's proj, 10) and the smallest of
+# several (32 a step)
+LINEAR_GATHER_CASES = (
+    ("64x0e+32x0e+16x0e+64x1e+32x1e+32x1e+32x1e+16x1e+16x1e+64x2e+32x2e+32x2e+16x2e+16x2e+16x2e",
+     "64x0e+112x0e+32x1e+16x2e"),
+    ("64x0e+32x1e+16x2e", "64x0e+32x1e+16x2e"), ("32x0e+16x1e+8x2e", "32x0e+16x1e+8x2e"))
 
 
 def gather_cases(dev) -> dict:
     """Phase 2f: the gather transpose (``nn/gather.py``) at ``GATHER_CASES``
-    on random gradients, 0 at the positions the table leaves out as
-    ``tp.apply_dtp_cm`` hands them: the kernel and its plain version each
-    within (terms + 1) units of 2^-24 of the float64 sum of |terms| of the
-    exact sum, as is index_select's own backward (zeros + index_add_); the
+    and ``LINEAR_GATHER_CASES`` (one row each) on random gradients as their
+    callers hand them (``tp.apply_dtp_cm``'s 0 at the positions the table
+    leaves out, ``IrrepsLinear``'s dense): the kernel
+    and its plain version each within (terms + 1) units of 2^-24 of the
+    float64 sum of |terms| of the exact sum of the kept positions, as is
+    index_select's own backward (zeros + index_add_, on every column but
+    the linear layer's zero element, whose sum it also takes); the
     kernel's and that backward's device time, the plain version's (CUDA
     events) and the bound: each byte of the gradient that the sum uses
     read once (the kept positions: the left-out ones come in runs of at
     least a multiplicity's lanes, so a kernel need not read them), of the
-    output written once, and of the table read once.  The kernel stages
-    whole rows, so it reads ``P / kept`` times the bytes it uses.
-    Returns {shape label: record}."""
+    output written once, and of the table read once.  Returns {shape label:
+    record}."""
     import torch
 
     from diffusion_edf_tpu_torch.geom.irreps import Irreps
     from diffusion_edf_tpu_torch.nn import gather, tp
+    from diffusion_edf_tpu_torch.nn.layers import IrrepsLinear
 
-    g_gen = torch.Generator(device=dev).manual_seed(0)
-    out = {}
+    like = torch.zeros(0, device=dev)
+    cases = []
     for irreps, which, rows in GATHER_CASES:
         prog = tp.dtp_instructions(Irreps(irreps), Irreps("1x0e+1x1e+1x2e"), Irreps(irreps))
-        table = dict(zip("XCW", tp.cm_tables(prog, False, torch.zeros(0, device=dev))))[which]
+        cases.append((f"{irreps} {which}", dict(zip("XCW", tp.cm_tables(prog, False, like)))[which], rows, False))
+    for irreps_in, irreps_out in LINEAR_GATHER_CASES:
+        cases.append((f"IrrepsLinear {irreps_out} W", IrrepsLinear(irreps_in, irreps_out).gather_tables(False, like)[0],
+                      1, True))
+    g_gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, table, rows, dense in cases:
         P = table.idx.shape[0]
         kept = torch.zeros(P, dtype=torch.bool, device=dev)
         kept[table.lanes.long()] = True
-        g = torch.randn(rows, P, generator=g_gen, device=dev) * kept  # as apply_dtp_cm hands it: 0 where left out
+        g = torch.randn(rows, P, generator=g_gen, device=dev)
+        if not dense:
+            g = g * kept  # as apply_dtp_cm hands it: 0 where left out
         zeros = torch.zeros(rows, table.width, dtype=torch.float64, device=dev)
-        exact = zeros.clone().index_add_(-1, table.idx, g.double())
+        exact = zeros.clone().index_add_(-1, table.idx, (g * kept).double())
         tol = ((table.ptr[1:] - table.ptr[:-1] + 1).double() * 2.0**-24
-               * zeros.clone().index_add_(-1, table.idx, g.double().abs()))
+               * zeros.clone().index_add_(-1, table.idx, (g * kept).double().abs()))
+        cols = slice(0, table.width - 1 if dense else table.width)  # the library also sums the zero element
         with torch.no_grad():
             results = dict(kernel=gather.gather_last_t(g, table), plain=gather.gather_last_t_plain(g, table),
                            library=torch.zeros(rows, table.width, device=dev).index_add_(-1, table.idx, g))
-        excess = {k: float(((v.double() - exact).abs() - tol).max()) for k, v in results.items()}
+        excess = {k: float(((v.double() - exact).abs() - tol)[:, cols].max()) for k, v in results.items()}
         err = float((results["kernel"].double() - exact).abs().max())
         label = f"{rows}x{P}->{table.width}"
         if max(excess.values()) > 0:
             raise SmokeFailure(f"2f: {label}: beyond float32 rounding of the exact sum by {excess}")
         n_kept = table.lanes.numel()
         nbytes = 4 * rows * (n_kept + table.width) + 4 * (table.ptr.numel() + n_kept)
-        rec = dict(rows=rows, positions=P, kept=n_kept, width=table.width, ms=device_ms(lambda: gather.gather_last_t(g, table)),
+        rec = dict(rows=rows, positions=P, kept=n_kept, width=table.width,
+                   ms=device_ms(lambda: gather.gather_last_t(g, table)),
                    bound_ms=bound(0.0, nbytes)[0], plain_ms=cuda_ms(lambda: gather.gather_last_t_plain(g, table)),
                    library_ms=device_ms(lambda: torch.zeros(rows, table.width, device=dev).index_add_(
                        -1, table.idx, g)), max_abs_err=err)
         rec["roofline_pct"] = 100 * rec["bound_ms"] / rec["ms"]
-        log(f"2f: gather_last_t {label} ({irreps} {which}, {n_kept} positions kept): kernel {rec['ms']:.4f} ms, "
+        log(f"2f: gather_last_t {label} ({name}, {n_kept} positions kept): kernel {rec['ms']:.4f} ms, "
             f"bound {rec['bound_ms']:.4f} "
             f"({rec['roofline_pct']:.1f} %), zeros + index_add_ {rec['library_ms']:.4f}, plain {rec['plain_ms']:.4f}; "
             f"max-abs err {err:.3g}")
@@ -2691,7 +2713,7 @@ def run() -> int:
         k1[label], k3[label] = rec1, rec3
     max_err, k3_err = max(max_err, err), max(k3_err, err3)
 
-    # ---- phase 2f: the transpose of the tensor product's gathers at the pick train step's shapes ----
+    # ---- phase 2f: the transpose of the tensor product's and the linear layers' gathers ----
     gathers = gather_cases(dev)
 
     # ---- phase 3: the first path, one pick_lowres stage on the default edge_impl ----

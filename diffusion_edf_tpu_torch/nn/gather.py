@@ -10,9 +10,10 @@ the hand-written CUDA kernel of the transpose (``csrc/gather.cu``).
 
 ``table`` holds the index and its CSR inverse (:func:`csr`): the positions
 of ``idx`` grouped by the column they read, in ascending order within each
-column.  Autograd's own backward of ``index_select`` is ``zeros`` +
-``index_add_``, a float atomic scatter whose order changes from run to run;
-for a constant table the transpose is a fixed sum that needs no atomics.
+column, built at the first transpose that needs it.  Autograd's own
+backward of ``index_select`` is ``zeros`` + ``index_add_``, a float atomic
+scatter whose order changes from run to run; for a constant table the
+transpose is a fixed sum that needs no atomics.
 Because each Function's backward calls the other Function, gradients of
 any order go through the same pair.
 
@@ -24,10 +25,13 @@ full gather) is not 0 where its true derivative is.  That is right only
 where the caller knows the gradient at those positions to be 0, or
 discards the gradient of the columns they read: ``tp.apply_dtp_cm``'s
 missing terms, which multiply A's zero column (so x1's gradient there is
-0) and read it (so the column's gradient is discarded by pad's backward);
-``tp.cm_tables`` holds that invariant, and ``tests/test_torch_gather.py``
-checks it for every program the shipped models build.  Any other caller
-builds full tables.
+0) and read it (so the column's gradient is discarded by pad's backward),
+and ``layers.IrrepsLinear``'s dense entries that read the zero element
+appended to its parameters (no parameter: cat's backward discards its
+gradient).  ``tp.cm_tables`` and ``IrrepsLinear._gather`` hold that
+invariant, and ``tests/test_torch_gather.py`` checks it for every program
+and every linear layer the shipped models build.  Any other caller builds
+full tables.
 
 The transpose of a CUDA tensor launches the kernel (float32 or float64),
 built at first use, or raises; that of a CPU tensor runs
@@ -52,15 +56,20 @@ __all__ = ["GatherTable", "csr", "gather_table", "gather_last", "gather_last_t",
 # capture bumps it as an eager call does; a replay does not.
 launches = 0
 
-_NO_FIT = -1  # the C launcher's code for "a row exceeds the shared memory of an SM"
-
 
 class GatherTable(NamedTuple):
     idx: torch.Tensor  # (P,) int64: the column each position reads
-    ptr: torch.Tensor  # (width + 1,) int32: column i's positions are lanes[ptr[i]:ptr[i + 1]]
-    lanes: torch.Tensor  # (nnz,) int32: positions, by column, ascending within a column
     width: int  # columns of the gathered tensor
     partial: bool  # the CSR leaves positions out: not an adjoint pair (module docstring)
+    inverse: Callable[[], Tuple[torch.Tensor, torch.Tensor]]  # (ptr, lanes), built at the first call
+
+    @property
+    def ptr(self) -> torch.Tensor:  # (width + 1,) int32: column i's positions are lanes[ptr[i]:ptr[i + 1]]
+        return self.inverse()[0]
+
+    @property
+    def lanes(self) -> torch.Tensor:  # (nnz,) int32: positions, by column, ascending within a column
+        return self.inverse()[1]
 
 
 def csr(idx: np.ndarray, width: int, keep: Optional[np.ndarray] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -80,24 +89,28 @@ def gather_table(key: Hashable, make: Callable[[], np.ndarray], width: int, like
                  keep: Optional[Callable[[], np.ndarray]] = None) -> GatherTable:
     """The table of the index ``make()`` over ``width`` columns, its CSR over
     the positions ``keep()`` holds (all without it), on ``like``'s device,
-    uploaded once per key through :func:`util.constant`.  With ``keep`` the
-    table is ``partial``: see the module docstring for what its caller must
+    uploaded once per key through :func:`util.constant`: the index now, the
+    CSR at the first transpose, so a gather that autograd never
+    differentiates (serving's) builds none.  With ``keep`` the table is
+    ``partial``: see the module docstring for what its caller must
     guarantee."""
-    def inverse():
-        return csr(make(), width, None if keep is None else keep())
-
     idx = constant(("gather_idx", key), lambda: np.asarray(make()).reshape(-1), like, dtype=torch.long)
-    ptr = constant(("gather_ptr", key), lambda: inverse()[0], like, dtype=torch.int32)
-    lanes = constant(("gather_lanes", key), lambda: inverse()[1], like, dtype=torch.int32)
-    return GatherTable(idx, ptr, lanes, width, keep is not None)
+
+    def inverse():  # on idx's device: the table keeps no reference to like
+        host = functools.lru_cache(maxsize=None)(lambda: csr(make(), width, None if keep is None else keep()))
+        return (constant(("gather_ptr", key), lambda: host()[0], idx, dtype=torch.int32),
+                constant(("gather_lanes", key), lambda: host()[1], idx, dtype=torch.int32))
+
+    return GatherTable(idx, width, keep is not None, inverse)
 
 
 def gather_last_t_plain(g: torch.Tensor, table: GatherTable) -> torch.Tensor:
     """The plain PyTorch version of the kernel: each column's segment summed
     in order (``torch.segment_reduce``); an empty segment gives 0."""
     lead = g.shape[:-1]
-    rows = g.reshape(-1, g.shape[-1]).index_select(-1, table.lanes.long())
-    lengths = (table.ptr[1:] - table.ptr[:-1]).to(torch.long).expand(rows.shape[0], table.width)
+    ptr, lanes = table.inverse()
+    rows = g.reshape(-1, g.shape[-1]).index_select(-1, lanes.long())
+    lengths = (ptr[1:] - ptr[:-1]).to(torch.long).expand(rows.shape[0], table.width)
     return torch.segment_reduce(rows, "sum", lengths=lengths, axis=1).reshape(*lead, table.width)
 
 
@@ -118,7 +131,8 @@ def _launch(g: torch.Tensor, table: GatherTable) -> torch.Tensor:
     global launches
     if g.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"gather_last_t: the CUDA kernel takes float32 or float64, not {g.dtype}")
-    if not (table.ptr.device == g.device and table.lanes.device == g.device):
+    ptr, lanes = table.inverse()
+    if not (ptr.device == g.device and lanes.device == g.device):
         raise ValueError("gather_last_t: the table lies on another device than the gradient")
     g = g.contiguous()
     out = torch.empty(*g.shape[:-1], table.width, dtype=g.dtype, device=g.device)  # every element written
@@ -128,10 +142,8 @@ def _launch(g: torch.Tensor, table: GatherTable) -> torch.Tensor:
     rows = g.numel() // P
     stream = torch.cuda.current_stream(g.device).cuda_stream
     with torch.cuda.device(g.device):  # the C launcher uses the current device
-        err = _library().gather_last_t_launch(g.data_ptr(), table.ptr.data_ptr(), table.lanes.data_ptr(),
+        err = _library().gather_last_t_launch(g.data_ptr(), ptr.data_ptr(), lanes.data_ptr(),
                                               out.data_ptr(), rows, P, table.width, g.element_size(), stream)
-    if err == _NO_FIT:
-        raise ValueError(f"gather_last_t: a row of {P} elements exceeds the shared memory of an SM")
     if err != 0:
         raise RuntimeError(f"gather_last_t: launch failed with cudaError {err}")
     launches += 1

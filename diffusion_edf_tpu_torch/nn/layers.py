@@ -11,6 +11,7 @@ from torch import nn
 
 from ..geom.irreps import Irrep, Irreps
 from ..parallel.mesh import current_pose_block
+from .gather import GatherTable, gather_last, gather_table
 from .util import cached, constant, sigmoid_norm, silu_norm
 
 __all__ = [
@@ -105,29 +106,47 @@ class IrrepsLinear(nn.Module):
                 b_off += mul_out
         return W, B
 
-    def _gather(self, permuted: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(W, bias)`` gathered from the params by :attr:`_tables`, in the
-        permuted layouts of ``input_perm`` / ``output_perm`` or canonical."""
-        def tables():
-            W_idx, B_idx = self._tables
-            if permuted and self.input_perm is not None:
-                W_idx = W_idx[list(self.input_perm), :]
-            if permuted and self.output_perm is not None:
-                op = list(self.output_perm)
-                W_idx, B_idx = W_idx[:, op], B_idx[op]
-            return W_idx, B_idx
+    def _index(self, permuted: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """:attr:`_tables` in the permuted layouts of ``input_perm`` /
+        ``output_perm``, or canonical."""
+        W_idx, B_idx = self._tables
+        if permuted and self.input_perm is not None:
+            W_idx = W_idx[list(self.input_perm), :]
+        if permuted and self.output_perm is not None:
+            op = list(self.output_perm)
+            W_idx, B_idx = W_idx[:, op], B_idx[op]
+        return W_idx.reshape(-1), B_idx
 
-        ref = next(iter(self.parameters()))
-        key = ("linear", self.irreps_in, self.irreps_out, bool(self.b_names)) + (
+    def _key(self, permuted: bool) -> tuple:
+        return ("linear", self.irreps_in, self.irreps_out, bool(self.b_names)) + (
             (self.input_perm, self.output_perm) if permuted else (None, None))
-        W_i = constant(key + ("W",), lambda: tables()[0].reshape(-1), ref, dtype=torch.long)
-        B_i = constant(key + ("B",), lambda: tables()[1], ref, dtype=torch.long)
+
+    def gather_tables(self, permuted: bool, like: torch.Tensor) -> Tuple[GatherTable, GatherTable]:
+        """The tables of the ``W`` and ``bias`` gathers as :mod:`.gather`
+        tables on ``like``'s device, over the flattened params and the zero
+        element appended to them.  Their CSR leaves out the positions that
+        read that element, nine in ten of ``W``'s in the larger layers: it is
+        no parameter, and the ``cat`` that appends it discards its gradient,
+        so the tables are ``partial`` (:mod:`.gather`), right only as
+        :meth:`_gather` uses them."""
+        widths = [sum(getattr(self, name).numel() for name, _ in self.w_names.values()) + 1,
+                  sum(getattr(self, name).numel() for name in self.b_names.values()) + 1]
+        return tuple(gather_table(self._key(permuted) + (part,), lambda i=i: self._index(permuted)[i], widths[i], like,
+                                  lambda i=i: self._index(permuted)[i] != widths[i] - 1)
+                     for i, part in enumerate("WB"))
+
+    def _gather(self, permuted: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(W, bias)`` gathered from the params by :mod:`.gather`'s pair
+        over :meth:`gather_tables`: ``index_select`` forward, and a CSR sum
+        for its transpose, not ``index_select``'s atomic ``index_add_``.
+        The CSR is built at the first backward, so serving builds none."""
+        ref = next(iter(self.parameters()))
         ws = [((getattr(self, name) - 1.0) / float(np.sqrt(mul_in))).reshape(-1) for name, mul_in in self.w_names.values()]
         bs = [getattr(self, name) for name in self.b_names.values()]
         zero = ref.new_zeros(1)
-        # index_select, whose backward is an index_add (advanced indexing's sorts its indices on CUDA)
-        W = torch.index_select(torch.cat(ws + [zero]), 0, W_i).reshape(self.irreps_in.dim, self.irreps_out.dim)
-        return W, torch.index_select(torch.cat(bs + [zero]), 0, B_i)
+        W_t, B_t = self.gather_tables(permuted, ref)
+        W = gather_last(torch.cat(ws + [zero]), W_t).reshape(self.irreps_in.dim, self.irreps_out.dim)
+        return W, gather_last(torch.cat(bs + [zero]), B_t)
 
     def materialize(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The effective dense ``(W (dim_in, dim_out), bias (dim_out,))`` in

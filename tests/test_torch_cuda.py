@@ -2,8 +2,8 @@
 masks of the rows to compute, and in its mixed bfloat16 mode, and the fused
 attention kernel) against their plain PyTorch versions on the card, and
 their refusal of autograd (they have no backward); the transpose of the
-tensor product's gathers against index_select's own backward, in a CUDA
-graph and in a train step; the agent's and the trainer's captured CUDA
+tensor product's and the linear layers' gathers against index_select's
+own backward and the plain CSR sum, in a CUDA graph and in a train step; the agent's and the trainer's captured CUDA
 graphs against their eager runs; the recorder's spans under the profiler,
 which leave device time alone.  This file imports neither jax nor the JAX
 package, so it runs on a GPU machine without them:
@@ -11,6 +11,9 @@ package, so it runs on a GPU machine without them:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a CUDA device every case skips."""
+import os
+
+import numpy as np
 import pytest
 import torch
 
@@ -22,6 +25,9 @@ from diffusion_edf_tpu_torch.nn.attention import GraphAttention
 from diffusion_edf_tpu_torch.weights import init_params
 
 SH = "1x0e+1x1e+1x2e"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = os.path.join(ROOT, "diffusion_edf_tpu_torch", "configs", "panda_mug")
+CHECKPOINTS = os.path.join(ROOT, "checkpoints", "panda_mug")
 
 
 def _need_cuda():
@@ -736,6 +742,161 @@ def test_train_step_launches_the_gather_kernel(tmp_path, ebm):
         assert calls[0] > 0 and gather.launches == before
     finally:
         tp_modules.apply_dtp_cm = original
+
+
+# ---- csrc/gather.cu on long rows and few rows: IrrepsLinear's weight assembly ----
+
+# pick_lowres's largest IrrepsLinear (the attention's sep_alpha_value): one row of 551,936 positions into 28,673
+# columns, 52,224 of the positions kept
+LINEAR_ALPHA_VALUE = ("64x0e+32x0e+16x0e+64x1e+32x1e+32x1e+32x1e+16x1e+16x1e+64x2e+32x2e+32x2e+16x2e+16x2e+16x2e",
+                      "64x0e+112x0e+32x1e+16x2e")
+
+
+def _long_row_case(case, dtype):
+    """``(table, rows)`` of a gather with long rows or few of them: the
+    largest linear layer's weight table, one row; one random row of 64 KB
+    and one element (random columns, seven positions in ten reading the
+    last, left out); three rows of apply_dtp_cm's X table."""
+    from diffusion_edf_tpu_torch.nn import gather
+    from diffusion_edf_tpu_torch.nn.layers import IrrepsLinear
+
+    like = torch.zeros(0, dtype=dtype, device="cuda")
+    if case == "linear":
+        return IrrepsLinear(*LINEAR_ALPHA_VALUE).gather_tables(False, like)[0], 1
+    if case == "few_rows":
+        return _gather_table("32x0e+16x1e+8x2e", "X"), 3
+    P = 64 * 1024 // like.element_size() + 1
+    rng = np.random.default_rng(7)
+    idx = np.where(rng.random(P) < 0.7, 3000, rng.integers(0, 3000, size=P))
+    return gather.gather_table(("test_long_row", P), lambda: idx, 3001, like, lambda: idx != 3000), 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["linear", "random_row", "few_rows"])
+def test_gather_kernel_on_long_rows_matches_plain(case, dtype):
+    """The kernel and ``gather_last_t_plain`` against the float64 sum of the
+    kept positions, each within (terms + 1) units of the dtype's rounding
+    of the sum of |terms| in every column (for float64, the reference's own
+    rounding); an empty segment (the left-out zero column, where the table
+    has one) exactly 0; two launches bit-equal, both counted."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather
+
+    table, rows = _long_row_case(case, dtype)
+    g = torch.randn(rows, table.idx.shape[0], generator=torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                    dtype=dtype)
+    before = gather.launches
+    out = gather.gather_last_t(g, table)  # g is not 0 where left out: the kernel must not read there
+    again = gather.gather_last_t(g, table)
+    assert gather.launches - before == 2
+    assert torch.equal(out, again)
+    plain = gather.gather_last_t_plain(g, table)
+    kept = g * _kept(table)
+    exact = torch.zeros(rows, table.width, dtype=torch.float64, device="cuda").index_add_(-1, table.idx, kept.double())
+    unit = 2.0**-24 if dtype == torch.float32 else 2.0**-52
+    tol = (table.ptr[1:] - table.ptr[:-1] + 1).double() * unit * torch.zeros_like(exact).index_add_(
+        -1, table.idx, kept.double().abs())
+    for got in (out, plain):
+        assert bool(((got.double() - exact).abs() <= tol).all())
+    empty = table.ptr[1:] == table.ptr[:-1]
+    assert bool(empty[-1]) == (case != "few_rows") and bool((out[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_captured_linear_gradients_replay_bit_equal():
+    """Every weight and bias gather of ``pick_lowres``'s linear layers (in
+    their permuted layouts, as the train step runs them), forward and
+    backward on fixed gradients of ``W`` and ``bias``, captured in one CUDA
+    graph: two replays give bit-equal parameter gradients, the capture
+    launches the kernel once for each gather of a parameter
+    (245), and the gradients are within float32 rounding of the exact
+    sum.  The whole train step is not bit-reproducible (the neighbour
+    gather's ``index_add_`` sums in no fixed order), so the gradients of
+    ``W`` are held fixed here."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather
+    from diffusion_edf_tpu_torch.nn.layers import IrrepsLinear
+    from diffusion_edf_tpu_torch.train.factory import build_score_model
+    from diffusion_edf_tpu_torch.train.trainer import load_configs
+
+    cfg = load_configs(os.path.join(CONFIGS, "pick_lowres"))[2]
+    model = init_params(build_score_model(cfg["model_name"], cfg["model_kwargs"]), torch.Generator().manual_seed(0))
+    layers = [m for m in model.cuda().modules() if isinstance(m, IrrepsLinear) and (m.w_names or m.b_names)]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cotangents = [(torch.randn(m.irreps_in.dim, m.irreps_out.dim, generator=gen, device="cuda"),
+                   torch.randn(m.irreps_out.dim, generator=gen, device="cuda")) for m in layers]
+
+    def step():
+        out = []
+        for m, (gW, gb) in zip(layers, cotangents):
+            W, bias = m._gather(True)
+            outs, cots = zip(*[(t, c) for t, c in ((W, gW), (bias, gb)) if t.requires_grad])
+            out += torch.autograd.grad(outs, list(m.parameters()), cots)
+        return out
+
+    step()  # tables built, kernels loaded
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    before = gather.launches
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        grads = step()
+    n_gathers = sum(bool(m.w_names) + bool(m.b_names) for m in layers)
+    assert n_gathers == 245 and gather.launches - before == n_gathers
+    graph.replay()
+    first = [g.clone() for g in grads]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, grads))
+    named = iter(first)
+    for m, (gW, gb) in zip(layers, cotangents):  # against index_select's backward, in float64
+        got = {name: next(named) for name, _ in m.named_parameters()}
+        for table, cot, parts in zip(m.gather_tables(True, gW), (gW, gb),
+                                     ([(n, float(np.sqrt(k))) for n, k in m.w_names.values()],
+                                      [(n, 1.0) for n in m.b_names.values()])):
+            if not parts:
+                continue
+            kept = cot.reshape(-1) * _kept(table)
+            exact = torch.zeros(table.width, dtype=torch.float64, device="cuda").index_add_(0, table.idx, kept.double())
+            tol = (table.ptr[1:] - table.ptr[:-1] + 1).double() * 2.0**-23 * torch.zeros_like(exact).index_add_(
+                0, table.idx, kept.double().abs())
+            flat = torch.cat([got[n].reshape(-1) * scale for n, scale in parts])  # the params' scale undone
+            assert bool(((flat.double() - exact[:-1]).abs() <= tol[:-1]).all())
+
+
+@pytest.mark.cuda
+def test_eager_train_step_gathers_linear_gradients_on_the_kernel(tmp_path):
+    """One eager ``pick_lowres`` train step launches the kernel at least
+    once for each of its linear layers' weight and bias gathers (131 and
+    114; the launches on a 1-D gradient over a ``partial`` table, which no
+    ``apply_dtp_cm`` gather has): ``IrrepsLinear``'s gradient comes from
+    ``csrc/gather.cu``."""
+    _need_cuda()
+    from diffusion_edf_tpu_torch.nn import gather
+    from diffusion_edf_tpu_torch.nn.layers import IrrepsLinear
+    from diffusion_edf_tpu_torch.train.synthetic import make_synthetic_dataset
+    from diffusion_edf_tpu_torch.train.trainer import DiffusionEdfTrainer
+
+    tr = DiffusionEdfTrainer(os.path.join(CONFIGS, "pick_lowres"), log_dir=str(tmp_path / "log"), device="cuda",
+                             seed=0, use_runtime=False)
+    tr.init(make_synthetic_dataset(n_demos=1, seed=0), checkpoint=os.path.join(CHECKPOINTS, "pick_lowres.npz"))
+    layers = [m for m in tr.model.modules() if isinstance(m, IrrepsLinear)]
+    n_gathers = sum(bool(m.w_names) + bool(m.b_names) for m in layers)
+    linear = [0]
+    original = gather._launch
+
+    def counted(g, table):
+        linear[0] += g.dim() == 1 and table.partial
+        return original(g, table)
+
+    gather._launch = counted
+    try:
+        tr.step(tr.batches[0])
+        torch.cuda.synchronize()
+    finally:
+        gather._launch = original
+    assert n_gathers == 245 and linear[0] >= n_gathers
 
 
 # ---- the sapien pick cascade (benchmark/configs/sapien_pick.json) through the runtime against eager ----

@@ -1,7 +1,7 @@
 """Where a benchmark train cell's gathers spend their backward: the device
 time of every ``aten::index_add_`` (autograd's backward of
 ``index_select``), by its shapes and its call site, and of the gather
-transpose's kernel (``nn/gather.py``), in one eager epoch.
+transpose's kernel (``nn/gather.py``), by call site, in one eager epoch.
 
     python3 tools/torch_train_sites.py [--workload pick_train] [--seed 0] [--out f.json]
 
@@ -16,8 +16,14 @@ launched it) under ``torch.profiler`` with the ops' input shapes.  An
 function's shared weights, a fraction of a millisecond an epoch on
 ``pick_train``), one whose source keeps the destination's last width
 gathered rows (the neighbour gather of ``nn/blocks.py``), any other
-gathered lanes (``tp.apply_dtp_cm``).  Prints one JSON line: device
-seconds by site, by (site, shapes) and by kernel name.  ``--device cpu
+gathered lanes (``tp.apply_dtp_cm``).  A launch of the gather transpose
+is put to its site by its gradient and table: a 1-D gradient over a
+``partial`` table is ``IrrepsLinear``'s weight assembly, any other
+``tp.apply_dtp_cm``'s (its shared weights' 1-D gradients have full
+tables); the tool opens a profiler range named by the site around each
+launch (``gather_last_t.<site>``), whose device time is that launch's
+kernel.  Prints one JSON line: device seconds by site, by (site,
+shapes) and by kernel name.  ``--device cpu
 --root <tiny root>`` rehearses it on the CPU, where the times are the
 host's and are named so.
 """
@@ -46,12 +52,18 @@ def site(shapes) -> str:
     return "apply_dtp_cm"
 
 
+def gather_site(g, table) -> str:
+    """The call site of a gather transpose of ``g`` over ``table``."""
+    return "irreps_linear" if g.dim() == 1 and table.partial else "apply_dtp_cm"
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from benchmark.harness import port, traffic
     from benchmark.harness.core import load_spec
+    from diffusion_edf_tpu_torch.nn import gather
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="pick_train")
@@ -75,10 +87,21 @@ def main() -> int:
         tr.train_epoch()  # eager warm-up
         sync = torch.cuda.synchronize if cuda else (lambda: None)
         sync()
-        with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []),
-                     record_shapes=True) as prof:
-            tr.train_epoch()
-            sync()
+        name = "_launch" if cuda else "gather_last_t_plain"  # what _GatherT.forward calls on this device
+        transpose = getattr(gather, name)
+
+        def named(g, table):
+            with torch.profiler.record_function(f"gather_last_t.{gather_site(g, table)}"):
+                return transpose(g, table)
+
+        setattr(gather, name, named)
+        try:
+            with profile(activities=[ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else []),
+                         record_shapes=True) as prof:
+                tr.train_epoch()
+                sync()
+        finally:
+            setattr(gather, name, transpose)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     unit = "device_s" if cuda else "host_s (CPU rehearsal)"
@@ -88,7 +111,13 @@ def main() -> int:
 
     by_site: Dict[str, float] = {}
     by_shape: Dict[str, Dict[str, Any]] = {}
+    gather_by_site: Dict[str, Dict[str, Any]] = {}
     for evt in prof.key_averages(group_by_input_shape=True):
+        if evt.key.startswith("gather_last_t."):
+            where = evt.key.split(".", 1)[1]
+            rec = gather_by_site.setdefault(where, dict(calls=0, s=0.0))
+            rec["calls"] += evt.count
+            rec["s"] += seconds(evt)
         if evt.key != "aten::index_add_":
             continue
         where = site(evt.input_shapes)
@@ -104,7 +133,7 @@ def main() -> int:
     out = dict(workload=args.workload, seed=args.seed, unit=unit, steps=len(tr.batches),
                index_add_s=total, index_add_share_by_site={k: v / total for k, v in by_site.items()} if total else {},
                index_add_by_site=by_site, index_add_by_shape=dict(sorted(by_shape.items(), key=lambda kv: -kv[1]["s"])),
-               kernels=kernels)
+               gather_last_t_by_site=gather_by_site, kernels=kernels)
     line = json.dumps(out)
     print(line)
     if args.out:
