@@ -612,6 +612,20 @@ def peak_gb(fn):
     return out, (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
+def capture_seconds(fn):
+    """(result of ``fn()``, the seconds that the programs it built spent
+    capturing: the ``capture_s`` of its ``graphs.build`` spans)."""
+    from diffusion_edf_tpu_torch.utils import profiling
+
+    profiling.drain()
+    profiling.record(True)
+    try:
+        out = fn()
+    finally:
+        profiling.record(False)
+    return out, sum(s.attrs["capture_s"] for s in profiling.drain() if s.name == "graphs.build")
+
+
 def k1_masked_case(label, ga, captured, g, dev, rel_gate=None):
     """K1 given the mask of ``captured`` (the arguments a GraphAttention
     received) against its plain version, at the path's mask and the stress
@@ -1175,8 +1189,9 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
         torch.cuda.synchronize()
         g0 = counters()["gather_last_t"]
         t0 = time.perf_counter()
-        tr.train_epoch()  # its statistics are read at its end: synchronised
-        rec = dict(epoch_s=time.perf_counter() - t0, gather_launches=counters()["gather_last_t"] - g0)
+        _, capture_s = capture_seconds(tr.train_epoch)  # its statistics are read at its end: synchronised
+        rec = dict(epoch_s=time.perf_counter() - t0, capture_s=capture_s,
+                   gather_launches=counters()["gather_last_t"] - g0)
         with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
             rec["state"] = dict(loss=[json.loads(line)["loss/train"] for line in f],
                                 params=[p.detach().clone() for p in tr.params],
@@ -1189,8 +1204,7 @@ def runtime_train_case(dev, name: str, n_demos: int, out_dir: str) -> dict:
             t0 = time.perf_counter()
             tr.train_epoch()
             rec.update(replay_epoch_s=time.perf_counter() - t0, entries=entries, entries_after=tr.cache_size(),
-                       capture_s=tr.capture_s(), pool_gb=tr.pool_bytes() / 1e9,
-                       replay_gather_launches=counters()["gather_last_t"] - g0)
+                       pool_gb=tr.pool_bytes() / 1e9, replay_gather_launches=counters()["gather_last_t"] - g0)
         if captured or i == TRAIN_EAGER_RUNS - 1:
             rec["busy_ms"], rec["kernels"] = train_profile(trainer_step(tr), steps=2)
         runs.append(rec)
@@ -2368,11 +2382,11 @@ def langevin_step_rows(agent, scene, grasp, Ts_init, sched, generator) -> dict:
     T0 = torch.as_tensor(np.concatenate([Ts_init[:, :4], Ts_init[:, 4:] * np.float32(100.0)], -1),
                          device=b.device)[None]
     with torch.no_grad(), rt.lock:
-        km, q = rt.extract([agent._prep(scene, grasp)], batched=False)
+        km, q = rt.extract([agent._prep(scene, grasp)])
         timings = {
             "eager": rollout_timing(lambda: langevin_sample(lambda T, t: b.model.score(T, km, q, t), T0, st,
                                                             b.ang_mult, b.lin_mult, generator=generator), steps),
-            "captured": rollout_timing(lambda: rt.rollout(km, q, T0, st, generator, True, False), steps),
+            "captured": rollout_timing(lambda: rt.rollout(km, q, T0, st, generator, True), steps),
         }
     return {name: dict(wall_ms=wall, busy_ms=busy, idle_share=None if busy is None else 1 - busy / wall,
                        kernels=kernels, steps=steps) for name, (wall, busy, kernels) in timings.items()}
@@ -2396,9 +2410,10 @@ def runtime_runs(label, make_agent, scene, grasp, Ts, schedule, gen):
         agent = make_agent(use_runtime) if name != "replayed" else agent
         reset_counters()
         t = time.perf_counter()
-        traj, _, _, info = agent.sample(scene, grasp, Ts, generator=gen(1), **schedule)
+        (traj, _, _, info), capture_s = capture_seconds(
+            lambda: agent.sample(scene, grasp, Ts, generator=gen(1), **schedule))
         torch.cuda.synchronize()
-        runs[name] = dict(traj=traj, launches=counters(), s=time.perf_counter() - t, info=info)
+        runs[name] = dict(traj=traj, launches=counters(), s=time.perf_counter() - t, info=info, capture_s=capture_s)
     eager = runs["eager"]["traj"]
     spread = float(np.abs(runs["eager again"]["traj"][-1] - eager[-1]).max())
     gate = RUNTIME_POSE_GATE if spread == 0.0 else max(RUNTIME_POSE_GATE, 2 * spread)
@@ -2407,13 +2422,12 @@ def runtime_runs(label, make_agent, scene, grasp, Ts, schedule, gen):
                request_s={k: v["s"] for k, v in runs.items()},
                ms_per_step={k: 1e3 * sum(v["info"]["rollout_s"]) / sum(v["info"]["steps"]) for k, v in runs.items()},
                cache_sizes=[rt.cache_sizes() for rt in agent._runtimes],
-               capture_s=[round(rt.capture_s(), 4) for rt in agent._runtimes], agent=agent)
+               capture_s=round(runs["captured"]["capture_s"], 4), agent=agent)
     if agent.critic is not None:
         e = runs["eager"]["info"]["energy"]
         rec["energy_diff"] = max(float(np.abs(runs[k]["info"]["energy"] - e).max()) for k in ("captured", "replayed"))
         rec["energy_gate"] = gate * max(1.0, float(np.abs(e).max()))
         rec["cache_sizes"].append(agent._critic_runtime.cache_sizes())
-        rec["capture_s"].append(round(agent._critic_runtime.capture_s(), 4))
     energies = f"; energies {rec['energy_diff']:.3g} apart" if "energy_diff" in rec else ""
     log(f"15 {label}: captured vs eager final poses {diff['captured']:.3g}, replayed {diff['replayed']:.3g} (gate "
         f"{gate:.3g}; two eager runs {spread:.3g} apart){energies}; launches eager {rec['launches']['eager']}, "
@@ -2459,14 +2473,15 @@ def runtime_phase(dev, bundle, scene, grasp, pbundles, pre_unpre, pscene, pgrasp
              ("place", pbundles[:2], pbundles[2], pscene, pgrasp, PICK_REQUEST))
     for label, models, critic, sc_, gr_, sched in paths:
         agent = DiffusionEdfAgent(models, *pre_unpre, critic=critic)
-        agent.warmup(sc_, gr_, n_seeds=N_SEEDS, diffusion_configs=sched, record_trajectory=True)
+        _, capture_s = capture_seconds(
+            lambda: agent.warmup(sc_, gr_, n_seeds=N_SEEDS, diffusion_configs=sched, record_trajectory=True))
         runtimes = agent._runtimes + ([agent._critic_runtime] if critic is not None else [])
         before = [rt.cache_sizes() for rt in runtimes]
         for i in range(2):
             agent.sample(sc_, gr_, seed_poses(N_SEEDS, seed=70 + i), generator=gen(i), **sched)
         after = [rt.cache_sizes() for rt in runtimes]
         rec = summary[f"{label}_entries"] = dict(
-            after_warmup=before, after_two_requests=after, capture_s=[round(rt.capture_s(), 4) for rt in runtimes],
+            after_warmup=before, after_two_requests=after, capture_s=round(capture_s, 4),
             pool_mb=[None if rt.pool_bytes() is None else rt.pool_bytes() / 1e6 for rt in runtimes])
         log(f"15 {label}: entries after warmup {before}; after two requests {after}; capture s {rec['capture_s']}; "
             f"graph pool MB {rec['pool_mb']}")

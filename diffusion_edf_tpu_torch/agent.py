@@ -11,10 +11,12 @@ only to its own request's key points), so the edge kernels see R times the
 rows of one request.  ``sample`` is ``sample_batch`` of one request.
 
 Each bundle, and the critic, has a :class:`_BundleRuntime` (the
-counterpart of the JAX package's), built once with the agent: its eight
-entry points (``extract_key``, ``extract_query``, ``rollout``, ``energy``,
-and their request-batched ``_b`` variants, which ``sample_batch`` uses) hold
-one entry per input shape, each with static buffers and ``graphs.Program``s:
+counterpart of the JAX package's), built once with the agent: its four
+entry points (``extract_key``, ``extract_query``, ``rollout``, ``energy``)
+serve ``sample`` and ``sample_batch`` alike, since the request count is
+part of an entry's shape (the JAX runtime keeps a ``_b`` copy of each,
+``jax.vmap`` over the requests, another program).  They hold one entry
+per input shape, each with static buffers and ``graphs.Program``s:
 on CUDA a graph captured at the entry's first call (one for the whole
 extraction or energy, one for each variant of the Langevin step: with noise,
 and at temperature 0), replayed at every later call; on the CPU the same
@@ -115,8 +117,24 @@ def _kept_points(key_ms: Sequence[FeaturedPoints]) -> int:
     return int(torch.stack([k.mask.sum() for k in key_ms]).sum())
 
 
-ENTRY_POINTS = ("extract_key", "extract_query", "rollout", "energy",
-                "extract_key_b", "extract_query_b", "rollout_b", "energy_b")
+def _padded(bundle: ModelBundle, preps, device: Union[str, torch.device] = "cpu"):
+    """Every request's scene and grasp cloud (``preps``: processed (scene,
+    grasp) pairs), padded to the bundle's sizes on ``device``."""
+    return ([pad_pointcloud(s, bundle.n_scene_pad, device) for s, _ in preps],
+            [pad_pointcloud(g, bundle.n_grasp_pad, device) for _, g in preps])
+
+
+def _key_scales(model, scenes: List[FeaturedPoints]) -> List[FeaturedPoints]:
+    """The key clouds of every request's padded scene, each scale stacked over requests."""
+    return [stack_points(scale) for scale in zip(*(model.get_key_pcd_multiscale(c) for c in scenes))]
+
+
+def _query(model, grasps: List[FeaturedPoints]) -> FeaturedPoints:
+    """The query of every request's padded grasp cloud, stacked over requests."""
+    return stack_points([model.get_query_pcd(c) for c in grasps])
+
+
+ENTRY_POINTS = ("extract_key", "extract_query", "rollout", "energy")
 
 
 @dataclasses.dataclass
@@ -129,10 +147,6 @@ class _Entry:
     program: Program
     src: Any = None
 
-    @property
-    def capture_s(self) -> float:
-        return self.program.capture_s
-
 
 class _Rollout:
     """The Langevin rollout of one shape: static poses, step counter,
@@ -143,10 +157,10 @@ class _Rollout:
     more program gathers the blocks."""
 
     def __init__(self, score_fn, src, R: int, nT: int, pattern: Tuple[bool, ...], record: bool,
-                 device: torch.device, pool, mesh: Optional[Mesh] = None, entry: str = "rollout"):
+                 device: torch.device, pool, mesh: Optional[Mesh] = None):
         S = len(pattern)
         self.src, self.pattern, self.device, self.pool, self.mesh = src, pattern, device, pool, mesh
-        self.entry, self.shape = entry, (R, nT, S, record)
+        self.shape = (R, nT, S, record)
         self.score_fn = score_fn
         W = mesh.axis_size("data") if mesh is not None else 1
         self.nT, self.n = nT, nT + (-nT) % W
@@ -194,23 +208,19 @@ class _Rollout:
         for hot in self.pattern:
             program = self.steps.get(hot)
             if program is None:  # its first run is this step's
-                self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool, entry=self.entry,
+                self.steps[hot] = Program(self._step_fn(hot), self.device, self.pool, entry="rollout",
                                           shape=(*self.shape, hot))
             else:
                 program()
         if self.mesh is None:
             return self.T, self.traj
         if self.gather is None:
-            self.gather = Program(self._gather_fn(), self.device, self.pool, mesh=self.mesh, entry=self.entry,
+            self.gather = Program(self._gather_fn(), self.device, self.pool, mesh=self.mesh, entry="rollout",
                                   shape=(*self.shape, "gather"))
             T, traj = self.gather.out
         else:
             T, traj = self.gather()
         return T.narrow(-2, 0, self.nT), None if traj is None else traj.narrow(-2, 0, self.nT)
-
-    @property
-    def capture_s(self) -> float:
-        return sum(p.capture_s for p in (*self.steps.values(), self.gather) if p is not None)
 
 
 class _BundleRuntime:
@@ -247,77 +257,62 @@ class _BundleRuntime:
         """The number of entries (shapes) of each entry point."""
         return {name: len(self.entries[name]) for name in ENTRY_POINTS}
 
-    def capture_s(self) -> float:
-        """Seconds spent capturing the entries held now (0 on the CPU)."""
-        return sum(e.capture_s for entries in self.entries.values() for e in entries.values())
-
     def pool_bytes(self) -> Optional[int]:
         """Device memory of the runtime's graph pool (None on the CPU)."""
         return pool_bytes(self.pool)
 
     def _extraction(self, name: str, clouds: List[FeaturedPoints], fn) -> Any:
+        """``fn(model, clouds)`` through the entry of ``name`` for the clouds' shape."""
         key = (len(clouds), clouds[0].n)
         entry = self.entries[name].get(key)
         if entry is not None:
             copy_into(entry.inputs, clouds)
             return entry.program()
-        dev = self.bundle.device
+        dev, model = self.bundle.device, self.bundle.model
         inputs = [FeaturedPoints(x=c.x.to(dev), f=c.f.to(dev), mask=c.mask.to(dev)) for c in clouds]
-        entry = self.entries[name][key] = _Entry(inputs, Program(lambda: fn(inputs), dev, self.pool, entry=name,
-                                                                 shape=key))
+        entry = self.entries[name][key] = _Entry(inputs, Program(lambda: fn(model, inputs), dev, self.pool,
+                                                                 entry=name, shape=key))
         return entry.program.out
 
-    def extract(self, preps, batched: bool):
+    def extract(self, preps):
         """Every request's key scales and query (``preps``: processed (scene,
         grasp) pairs), stacked over requests: the static outputs of the
-        ``extract_key`` and ``extract_query`` entries (``_b`` if batched)."""
+        ``extract_key`` and ``extract_query`` entries."""
         self._check()
-        b, sfx = self.bundle, "_b" if batched else ""
-        model = b.model
+        scenes, grasps = _padded(self.bundle, preps)
+        return self._extraction("extract_key", scenes, _key_scales), self._extraction("extract_query", grasps, _query)
 
-        def keys(inputs):
-            return [stack_points(scale) for scale in zip(*(model.get_key_pcd_multiscale(c) for c in inputs))]
-
-        def queries(inputs):
-            return stack_points([model.get_query_pcd(c) for c in inputs])
-
-        key_ms = self._extraction("extract_key" + sfx, [pad_pointcloud(s, b.n_scene_pad) for s, _ in preps], keys)
-        query = self._extraction("extract_query" + sfx, [pad_pointcloud(g, b.n_grasp_pad) for _, g in preps],
-                                 queries)
-        return key_ms, query
-
-    def rollout(self, key_ms, query, T0: torch.Tensor, sched: LangevinSchedule, generator, record: bool,
-                batched: bool):
+    def rollout(self, key_ms, query, T0: torch.Tensor, sched: LangevinSchedule, generator, record: bool):
         """The Langevin rollout from ``T0`` (R, nT, 7) on :meth:`extract`'s
         outputs: the static (final poses, trajectory (S + 1, R, nT, 7) or
         None).  Its noise is what :func:`langevin_sample` draws from
         ``generator``."""
         R, nT = T0.shape[:2]
         pattern = tuple(bool(h) for h in draws_noise(sched))
-        name, key = "rollout" + ("_b" if batched else ""), (R, nT, len(pattern), record, pattern)
-        entry = self.entries[name].get(key)
+        key = (R, nT, len(pattern), record, pattern)
+        entry = self.entries["rollout"].get(key)
         if entry is None or entry.src[0] is not key_ms or entry.src[1] is not query:
             model = self.bundle.model
 
             def score_fn(T, t):
                 return model.score(T, key_ms, query, t)
 
-            entry = self.entries[name][key] = _Rollout(score_fn, (key_ms, query), R, nT, pattern, record,
-                                                       self.bundle.device, self.pool, self.mesh, name)
+            entry = self.entries["rollout"][key] = _Rollout(score_fn, (key_ms, query), R, nT, pattern, record,
+                                                            self.bundle.device, self.pool, self.mesh)
         return entry.run(T0, schedule_table(sched, self.bundle.ang_mult, self.bundle.lin_mult), generator)
 
-    def energy(self, key_ms, query, T: torch.Tensor, batched: bool) -> torch.Tensor:
+    def energy(self, key_ms, query, T: torch.Tensor) -> torch.Tensor:
         """The energies (R, nT) of the poses ``T`` on :meth:`extract`'s outputs."""
         R, nT = T.shape[:2]
-        name = "energy" + ("_b" if batched else "")
-        entry = self.entries[name].get((R, nT))
+        entry = self.entries["energy"].get((R, nT))
         if entry is not None and entry.src[0] is key_ms and entry.src[1] is query:
             copy_into(entry.inputs, [T])
             return entry.program()
         dev, model = self.bundle.device, self.bundle.model
         Ts, ones = T.to(dev).clone(), torch.ones(R, nT, device=dev)
-        program = Program(lambda: model.energy(Ts, key_ms, query, ones), dev, self.pool, entry=name, shape=(R, nT))
-        self.entries[name][(R, nT)] = _Entry([Ts], program, (key_ms, query))
+        program = Program(lambda: model.energy(Ts, key_ms, query, ones), dev, self.pool, entry="energy",
+                          shape=(R, nT))
+        self.entries["energy"][(R, nT)] = _Entry([Ts], program, (key_ms, query))
         return program.out
 
 
@@ -390,11 +385,10 @@ class DiffusionEdfAgent:
         the final poses, ascending, and ``info["energy"]`` holds the sorted
         energies."""
         scene_p, grasp_p = self._prep(scene_pcd, grasp_pcd)
-        traj, info = self._run([(scene_p, grasp_p)], np.asarray(Ts_init, dtype=np.float32)[None], dict(
-            N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
-            diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
-            time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
-        ), generator, record_trajectory, batched=False)
+        scheds = self._schedules(N_steps_list, timesteps_list, temperatures_list, diffusion_schedules_list,
+                                 log_t_schedule, time_exponent_temp, time_exponent_alpha)
+        traj, info = self._run([(scene_p, grasp_p)], np.asarray(Ts_init, dtype=np.float32)[None], scheds, generator,
+                               record_trajectory)
         if "energy" in info:
             info["energy"] = info["energy"][0]
         return traj[0], scene_p, grasp_p, info
@@ -431,57 +425,51 @@ class DiffusionEdfAgent:
         ``sample`` gives with that seed."""
         assert len(scene_pcds) == len(grasp_pcds) == np.asarray(Ts_init).shape[0]
         preps = [self._prep(s, g) for s, g in zip(scene_pcds, grasp_pcds)]
-        return self._run(preps, np.asarray(Ts_init, dtype=np.float32), dict(
-            N_steps_list=N_steps_list, timesteps_list=timesteps_list, temperatures_list=temperatures_list,
-            diffusion_schedules_list=diffusion_schedules_list, log_t_schedule=log_t_schedule,
-            time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
-        ), generator, record_trajectory, n_seeds, batched=True)
+        scheds = self._schedules(N_steps_list, timesteps_list, temperatures_list, diffusion_schedules_list,
+                                 log_t_schedule, time_exponent_temp, time_exponent_alpha)
+        return self._run(preps, np.asarray(Ts_init, dtype=np.float32), scheds, generator, record_trajectory, n_seeds)
 
-    @staticmethod
-    def _extract(bundle: ModelBundle, preps):
-        """Every request's key scales and query, stacked over requests (eagerly)."""
-        model, dev = bundle.model, bundle.device
-        keys = [model.get_key_pcd_multiscale(pad_pointcloud(s, bundle.n_scene_pad, dev)) for s, _ in preps]
-        query = stack_points([model.get_query_pcd(pad_pointcloud(g, bundle.n_grasp_pad, dev)) for _, g in preps])
-        return [stack_points(scale) for scale in zip(*keys)], query
+    def _schedules(self, N_steps_list, timesteps_list, temperatures_list, diffusion_schedules_list, log_t_schedule,
+                   time_exponent_temp, time_exponent_alpha) -> List[LangevinSchedule]:
+        """Each stage's Langevin schedule from the diffusion config of a call."""
+        return [build_schedule(
+            diffusion_schedules=diffusion_schedules_list[mi], N_steps=N_steps_list[mi], timesteps=timesteps_list[mi],
+            ang_mult=b.ang_mult, lin_mult=b.lin_mult, temperatures=temperatures_list[mi], log_t_schedule=log_t_schedule,
+            time_exponent_temp=time_exponent_temp, time_exponent_alpha=time_exponent_alpha,
+        ) for mi, b in enumerate(self.models)]
 
     @torch.no_grad()
-    def _run(self, preps, Ts_init: np.ndarray, cfg: Dict[str, Any], generator, record_trajectory: bool,
-             n_seeds: Optional[Sequence[int]] = None, batched: bool = False):
+    def _run(self, preps, Ts_init: np.ndarray, scheds: List[LangevinSchedule], generator, record_trajectory: bool,
+             n_seeds: Optional[Sequence[int]] = None):
         R, nT = Ts_init.shape[:2]
         pose_scale = 1.0 / self.unrescale if self.unrescale != 1.0 else 1.0
         T0 = np.concatenate([Ts_init[..., :4], Ts_init[..., 4:] * np.float32(pose_scale)], axis=-1)
         info: Dict[str, Any] = {"extract_s": [], "key_points": [], "rollout_s": [], "steps": []}
         trajs = []
         T = None
-        for mi, bundle in enumerate(self.models):
+        for mi, (bundle, sched) in enumerate(zip(self.models, scheds)):
             model, dev = bundle.model, bundle.device
             T = torch.as_tensor(T0, device=dev) if T is None else T.to(dev)
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(int(np.random.randint(0, 2**31 - 1)))
-            sched = build_schedule(
-                diffusion_schedules=cfg["diffusion_schedules_list"][mi], N_steps=cfg["N_steps_list"][mi],
-                timesteps=cfg["timesteps_list"][mi], ang_mult=bundle.ang_mult, lin_mult=bundle.lin_mult,
-                temperatures=cfg["temperatures_list"][mi], log_t_schedule=cfg["log_t_schedule"],
-                time_exponent_temp=cfg["time_exponent_temp"], time_exponent_alpha=cfg["time_exponent_alpha"],
-            )
             extract = span("agent.extract", device_work=True, stage=mi, model=type(model).__name__)
             rollout = span("agent.rollout", device_work=True, stage=mi, steps=len(sched.t))
             if self.use_runtime:
                 rt = self._runtimes[mi]
                 with rt.lock:
                     with extract:
-                        key_ms, query = rt.extract(preps, batched)
+                        key_ms, query = rt.extract(preps)
                         _sync(dev)
                         extract.attrs["key_points"] = _kept_points(key_ms)
                     with rollout:
-                        T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory, batched)
+                        T, traj = rt.rollout(key_ms, query, T, sched, generator, record_trajectory)
                         T = T.clone()
                         traj = traj.transpose(0, 1).cpu().numpy() if record_trajectory else None
                         _sync(dev)
             else:
                 with extract:
-                    key_ms, query = self._extract(bundle, preps)
+                    scenes, grasps = _padded(bundle, preps, dev)
+                    key_ms, query = _key_scales(model, scenes), _query(model, grasps)
                     _sync(dev)
                     extract.attrs["key_points"] = _kept_points(key_ms)
 
@@ -511,10 +499,11 @@ class DiffusionEdfAgent:
                 if self.use_runtime:
                     rt = self._critic_runtime
                     with rt.lock:
-                        energy = rt.energy(*rt.extract(preps, batched), Tl, batched).cpu().numpy()
+                        energy = rt.energy(*rt.extract(preps), Tl).cpu().numpy()
                 else:
-                    key_ms, query = self._extract(c, preps)
-                    energy = c.model.energy(Tl, key_ms, query, torch.ones(R, nT, device=dev)).cpu().numpy()
+                    scenes, grasps = _padded(c, preps, dev)
+                    energy = c.model.energy(Tl, _key_scales(c.model, scenes), _query(c.model, grasps),
+                                            torch.ones(R, nT, device=dev)).cpu().numpy()
             info["critic_s"] = critic.seconds
             if n_seeds is not None:
                 energy[np.arange(nT)[None, :] >= np.asarray(n_seeds)[:, None]] = np.inf

@@ -427,10 +427,6 @@ class DiffusionEdfTrainer:
         """The number of compiled steps (entries) held."""
         return len(self._entries)
 
-    def capture_s(self) -> float:
-        """Seconds spent capturing the entries held now (0 on the CPU)."""
-        return sum(e.program.capture_s for e in self._entries.values())
-
     def pool_bytes(self) -> Optional[int]:
         """Device memory of the trainer's graph pool (None on the CPU)."""
         return pool_bytes(self.pool)

@@ -152,7 +152,7 @@ def test_agent_mesh_matches_one_process(tmp_path, tiny_config_dir):  # noqa: F81
         assert np.abs(run["traj"][-1] - run["traj"][0]).max() > 1e-3
         assert np.isinf(run["batch_energy"][1, -2:]).all()  # the padding seeds rank last
         assert o["sizes_after"] == o["sizes_warm"]
-        assert o["rollout_entries"] == [(1, 5, 3, True, (True, True, False))]
+        assert o["rollout_entries"] == [(R, 5, 3, True, (True, True, False)) for R in (1, 2)]  # sample, sample_batch
     np.testing.assert_array_equal(outs[0]["runtime"]["batch"], outs[1]["runtime"]["batch"])
 
 

@@ -89,18 +89,15 @@ def test_rollout_equals_langevin_sample_bitwise(dirs, R, record):
                            temperatures=[1.0, 0.0], time_exponent_temp=1.0)
     rt = _BundleRuntime(bundle)
     with torch.no_grad():
-        key_ms, query = rt.extract(preps, batched=R > 1)
+        key_ms, query = rt.extract(preps)
         ref = langevin_sample(lambda T, t: bundle.model.score(T, key_ms, query, t), T0, sched, bundle.ang_mult,
                               bundle.lin_mult, generator=_gen(7), record_trajectory=record)
         for _ in range(2):
-            T, traj = rt.rollout(key_ms, query, T0, sched, _gen(7), record, batched=R > 1)
+            T, traj = rt.rollout(key_ms, query, T0, sched, _gen(7), record)
             assert torch.equal(T, ref[0])
             assert (traj is None) == (not record) and (traj is None or torch.equal(traj, ref[1]))
     assert float((ref[0] - T0).abs().max()) > 1e-3  # the poses moved
-    sizes = rt.cache_sizes()
-    b = "_b" if R > 1 else ""
-    assert sizes[f"rollout{b}"] == sizes[f"extract_key{b}"] == sizes[f"extract_query{b}"] == 1
-    assert sum(sizes.values()) == 3
+    assert rt.cache_sizes() == dict(extract_key=1, extract_query=1, rollout=1, energy=0)
 
 
 def test_no_new_entry_after_warmup(dirs):
@@ -111,7 +108,8 @@ def test_no_new_entry_after_warmup(dirs):
     scene, grasp, Ts = _request(0, 2)
     agent.warmup(scene, grasp, n_seeds=2, diffusion_configs=DIFF_CFG, record_trajectory=True)
     sizes0 = agent._runtimes[0].cache_sizes()
-    assert sizes0 == dict.fromkeys(ENTRY_POINTS, 0) | dict(extract_key=1, extract_query=1, rollout=1)
+    assert ENTRY_POINTS == ("extract_key", "extract_query", "rollout", "energy")
+    assert sizes0 == dict(extract_key=1, extract_query=1, rollout=1, energy=0)
     for i in range(2):
         agent.sample(scene, grasp, Ts, generator=_gen(i), **DIFF_CFG)
     assert agent._runtimes[0].cache_sizes() == sizes0
@@ -156,7 +154,8 @@ def test_cascade_and_batch_equal_the_eager_agent(dirs):
     """lowres -> highres -> critic through the runtime against the same
     agent run eagerly (``use_runtime=False``), noise on: trajectories and
     energies equal to the bit; the same for ``sample_batch`` of two
-    requests, whose entries are the ``_b`` ones."""
+    requests, which adds the entries of two requests to the same entry
+    points."""
     bundles = [_bundle(dirs, n, s) for n, s in (("low", 3), ("high", 4), ("ebm", 5))]
     cfg = dict(DIFF_CFG, N_steps_list=[[2, 2], [2, 1]], timesteps_list=[[0.04, 0.02], [0.02, 0.01]],
                temperatures_list=[[1.0, 1.0], [1.0, 0.0]],
@@ -176,8 +175,8 @@ def test_cascade_and_batch_equal_the_eager_agent(dirs):
     np.testing.assert_array_equal(batch[0][1]["energy"], batch[1][1]["energy"])
     assert np.isinf(batch[0][1]["energy"][1, -1])  # the padding seed ranks last
     for rt in agents[0]._runtimes:
-        assert rt.cache_sizes() == dict.fromkeys(ENTRY_POINTS, 1) | dict(energy=0, energy_b=0)
-    assert agents[0]._critic_runtime.cache_sizes() == dict.fromkeys(ENTRY_POINTS, 1) | dict(rollout=0, rollout_b=0)
+        assert rt.cache_sizes() == dict(extract_key=2, extract_query=2, rollout=2, energy=0)
+    assert agents[0]._critic_runtime.cache_sizes() == dict(extract_key=2, extract_query=2, rollout=0, energy=2)
     assert all(sum(rt.cache_sizes().values()) == 0 for rt in agents[1]._runtimes)
 
 

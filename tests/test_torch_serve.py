@@ -1,7 +1,8 @@
 """The port's serving path on tiny models, on the CPU: request batching
 (``sample_batch`` against ``sample``), the trajectory functions against the
 JAX package's, the HTTP service (every endpoint, errors, batched dispatch,
-concurrent unbatched calls) and ``build_service`` from a config family."""
+a batching service's warm-up, concurrent unbatched calls) and
+``build_service`` from a config family."""
 import json
 import threading
 import urllib.error
@@ -244,6 +245,30 @@ def test_batched_padding_seeds_rank_last(agents):
         np.testing.assert_allclose(out["energy"], ref["energy"], atol=1e-6)
     final = np.asarray(results[0]["trajectories"])[-1]
     assert final.shape == (3, 7) and np.abs(final[:, None] - final[None]).max(-1)[np.triu_indices(3, 1)].min() > 1e-4
+
+
+def test_warmed_batching_service_serves_a_lone_request_on_warm_entries(family):
+    """A batching service warmed by ``warmup_service`` (through ``sample``)
+    answers a lone 1-seed ``/denoise``, which its dispatcher runs through
+    ``sample_batch`` of one request, on the entries the warm-up made: no
+    runtime of the agent gains one."""
+    _, dirs = family
+    b = [load_model_bundle(dirs[f"pick_{s}"], device="cpu", init_seed=7 + i, **PADS)
+         for i, s in enumerate(("lowres", "highres", "ebm"))]
+    agent = DiffusionEdfAgent(b[:2], PREPROCESS, UNPROCESS, critic=b[2])
+    service = AgentService(agent, None, dict(pick_diffusion_configs=COLD), batching=dict(max_batch=2))
+    warmup_service(service, n_points=64)
+    runtimes = [*agent._runtimes, agent._critic_runtime]
+    before = [rt.cache_sizes() for rt in runtimes]
+    httpd, url = _serve(service)
+    try:
+        out = _post(url + "/denoise", _payload("pick", 70, n_seeds=1))
+    finally:
+        httpd.shutdown()
+    _check_poses(out["trajectories"], 1)
+    assert service.batch_stats == {"dispatches": 1, "requests": 1, "batched_requests": 1, "padded_requests": 0}
+    after = [rt.cache_sizes() for rt in runtimes]
+    assert after == before and all(sum(s.values()) for s in before)  # every runtime warmed, none grown
 
 
 def test_concurrent_unbatched_calls_match_sequential(agents):

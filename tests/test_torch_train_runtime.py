@@ -139,9 +139,9 @@ def test_caches_and_agent_entries_follow_a_runtime_epoch(tmp_path):
     rt = agent._runtimes[0]
     rng = np.random.default_rng(0)
     cloud = PointCloud(rng.uniform(-5, 5, (100, 3)).astype(np.float32), rng.uniform(0, 1, (100, 3)))
-    rt.extract([(cloud, cloud)], batched=False)
+    rt.extract([(cloud, cloud)])
     kept = rt.entries
-    rt.extract([(cloud, cloud)], batched=False)
+    rt.extract([(cloud, cloud)])
     assert rt.entries is kept and rt.cache_sizes()["extract_key"] == 1
     tr.train_epoch()
     assert tr.cache_size() == 1
@@ -152,7 +152,7 @@ def test_caches_and_agent_entries_follow_a_runtime_epoch(tmp_path):
     for a, f, z in zip(after, again, before):
         torch.testing.assert_close(a, f, rtol=0, atol=0)
         assert float((a - z).abs().max()) > 0
-    rt.extract([(cloud, cloud)], batched=False)
+    rt.extract([(cloud, cloud)])
     assert rt.entries is not kept and rt.cache_sizes()["extract_key"] == 1
 
 

@@ -293,7 +293,7 @@ def train_epochs(mesh, dev, n_demos):
         def one():
             stats, s, gb = peak(lambda: tr.train_epoch(mesh=m))
             return s / n_demos * 1e3, gb
-        ms, gb = one()
+        (ms, gb), capture_s = cs.capture_seconds(one)
         rec = dict(ms_a_step=ms, peak_gb=gb, count=int(tr.optimizer.count),
                    poses_a_step=tr.n_samples_x_ref * len(tr.time_schedules))
         with open(os.path.join(tr.log_dir, "metrics.jsonl")) as f:
@@ -302,7 +302,7 @@ def train_epochs(mesh, dev, n_demos):
                             ema=[e.clone() for e in tr.ema], opt=[x.clone() for x in tr.optimizer.state_tensors()[1:]])
         if tr.use_runtime:
             rec["replay_ms_a_step"], _ = one()
-            rec.update(entries=tr.cache_size(), capture_s=tr.capture_s(), pool_gb=(tr.pool_bytes() or 0) / 1e9)
+            rec.update(entries=tr.cache_size(), capture_s=capture_s, pool_gb=(tr.pool_bytes() or 0) / 1e9)
         return rec
 
     def data_parallel(use_runtime, tag):
